@@ -1,0 +1,348 @@
+"""Envelope Q-Learning — device-resident actor-learner on torch.
+
+PyTorch port of ``morl_baselines_tpu/agents/envelope.py`` (reference
+multi_policy/envelope/envelope.py:33-573; Yang et al., 2019):
+
+- Q(s, w) in R^{A x d} conditioned on the weight vector (reference :33-77).
+- Envelope TD target: online-net argmax over (sampled weights w', actions)
+  of w·Q(s', a, w'), evaluated on the target net (reference :404-440).
+- Homotopy loss (1-λ)·MSE(Q, y) + λ·MSE(w·Q, w·y), λ linearly scheduled
+  (reference :309-313, 348-355).
+- Per-episode Gaussian weight resampling (reference :526-569); optional PER
+  with priorities (|w·td| + min_priority)^alpha (reference :329-334, 507-525).
+
+``num_envs`` envs live on the device and a segment of (act -> step -> store
+-> learn) iterations is a Python loop of tensor ops, where the JAX package
+has one ``lax.scan``.  The state (nets, optimizer, replay buffer, env state)
+is updated **in place**; ``global_step`` and ``iter_count`` are host
+integers, so the learn gate and the hard target sync never wait on the
+device.  Randomness comes from one ``torch.Generator`` on the device.
+
+The Q-net runs in full float32: ``resolve_device`` turns TF32 off on CUDA.
+The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
+the clip is written out (optax scales by max_norm/‖g‖ only when ‖g‖ >=
+max_norm, with no epsilon, unlike ``clip_grad_norm_``), then
+``torch.optim.Adam`` with optax's betas and eps.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.weights import equally_spaced_weights, random_weights
+from ..envs.base import MOEnv
+from ..envs.vector import EpisodeStats, VectorMOEnv
+from ..evaluation.evaluation import evaluate_front, multi_policy_metrics
+from ..models.networks import EnvelopeQNet, TrainState, polyak_update
+from ..replay.buffer import ReplayBuffer, Transition
+from ..replay.prioritized import PrioritizedReplayBuffer
+from ..utils.schedules import linearly_decaying_value
+from .base import MOAgentBase
+
+
+@dataclass(frozen=True)
+class EnvelopeConfig:
+    learning_rate: float = 3e-4
+    gamma: float = 0.98
+    batch_size: int = 128
+    buffer_size: int = 100_000
+    num_envs: int = 32
+    learning_starts: int = 200
+    train_freq: int = 1  # env-iterations between updates (each steps num_envs envs)
+    gradient_updates: int = 1
+    target_net_update_freq: int = 200  # in env-iterations
+    tau: float = 1.0
+    num_sample_w: int = 4
+    initial_epsilon: float = 1.0
+    final_epsilon: float = 0.05
+    epsilon_decay_steps: int = 50_000
+    initial_homotopy_lambda: float = 0.0
+    final_homotopy_lambda: float = 1.0
+    homotopy_decay_steps: int = 100_000
+    max_grad_norm: float = 1.0
+    per: bool = False
+    per_alpha: float = 0.6
+    min_priority: float = 0.01
+    hidden: tuple = (256, 256, 256, 256)
+    bf16: bool = False  # bfloat16 Q-net compute: not in the port yet
+    seed: int = 0
+
+
+@dataclass
+class EnvelopeState:
+    ts: TrainState
+    buffer: ReplayBuffer | PrioritizedReplayBuffer
+    env_state: tuple
+    obs: torch.Tensor  # (N, obs_dim)
+    weights: torch.Tensor  # (N, d) current per-env episode weight
+    stats: EpisodeStats
+    gen: torch.Generator
+    global_step: int  # env steps (counts individual env transitions)
+    iter_count: int  # actor-learner iterations
+    loss: torch.Tensor  # last update's loss (NaN before the first)
+
+
+class Envelope(MOAgentBase):
+    def __init__(self, env: MOEnv, config: EnvelopeConfig = EnvelopeConfig(), log: bool = False, device="cuda"):
+        if config.bf16:
+            raise NotImplementedError("the bf16 Q-net path is not ported yet")
+        super().__init__(env, config, log=log, device=device)
+        self.cfg = config
+        self.venv = VectorMOEnv(env, config.num_envs)
+
+    def make_q_net(self, gen: torch.Generator | None = None) -> EnvelopeQNet:
+        """A freshly initialized Q-net on the agent's device."""
+        net = EnvelopeQNet(self.obs_dim, self.env.num_actions, self.reward_dim, self.cfg.hidden, gen=gen)
+        return net.to(self.device)
+
+    def make_train_state(self, net: EnvelopeQNet) -> TrainState:
+        """Online net ``net``, a target copy of it, and the Adam optimizer."""
+        target = self.make_q_net()
+        target.load_state_dict(net.state_dict())
+        target.requires_grad_(False)
+        opt = torch.optim.Adam(net.parameters(), lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        return TrainState(net=net, target_net=target, optimizer=opt)
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self, seed: int | None = None) -> EnvelopeState:
+        cfg = self.cfg
+        seed = cfg.seed if seed is None else seed
+        # params are drawn on the host, so a seed gives the same net on any device
+        net = self.make_q_net(torch.Generator().manual_seed(seed))
+        gen = torch.Generator(self.device).manual_seed(seed)
+        buf_cls = PrioritizedReplayBuffer if cfg.per else ReplayBuffer
+        buffer = buf_cls.create(cfg.buffer_size, obs_dim=self.obs_dim, reward_dim=self.reward_dim, device=self.device)
+        env_state, obs = self.venv.reset(gen)
+        return EnvelopeState(
+            ts=self.make_train_state(net),
+            buffer=buffer,
+            env_state=env_state,
+            obs=obs,
+            weights=random_weights(gen, self.reward_dim, n=cfg.num_envs, dist="gaussian"),
+            stats=EpisodeStats.create(cfg.num_envs, self.reward_dim, self.device),
+            gen=gen,
+            global_step=0,
+            iter_count=0,
+            loss=torch.full((), float("nan"), device=self.device),
+        )
+
+    # ------------------------------------------------------------ update math
+
+    @torch.no_grad()
+    def _envelope_target(self, ts: TrainState, next_obs, w, sampled_w) -> torch.Tensor:
+        """max over (sampled w', a) of w·Q_online(s',a,w'), read off Q_target.
+
+        Reference envelope.py:404-440.  Shapes: next_obs (B, O), w (B, d),
+        sampled_w (W, d).  One batched forward over B*W rows per net.
+        """
+        b, n_w, d = next_obs.shape[0], sampled_w.shape[0], self.reward_dim
+        no = next_obs.repeat_interleave(n_w, dim=0)  # (B*W, O)
+        ws = sampled_w.repeat(b, 1)  # (B*W, d)
+        q_online = ts.net(no, ws).reshape(b, n_w, -1, d)
+        scal = torch.einsum("bd,bwad->bwa", w, q_online)
+        best_a = torch.argmax(scal, dim=2)  # (B, W)
+        best_w = torch.argmax(torch.max(scal, dim=2).values, dim=1)  # (B,)
+        q_target = ts.target_net(no, ws).reshape(b, n_w, -1, d)
+        q_at_a = torch.gather(q_target, 2, best_a[:, :, None, None].expand(b, n_w, 1, d)).squeeze(2)  # (B, W, d)
+        return torch.gather(q_at_a, 1, best_w[:, None, None].expand(b, 1, d)).squeeze(1)  # (B, d)
+
+    def _loss(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
+        """Envelope homotopy loss of ``ts.net`` on ``batch`` tiled over the
+        sampled weights (reference :279-291); returns (loss, td_scal, l_mo)."""
+        cfg = self.cfg
+        n_w, b = sampled_w.shape[0], batch.obs.shape[0]
+        w = sampled_w.repeat_interleave(b, dim=0)  # (W*B, d)
+        obs = batch.obs.repeat(n_w, 1)
+        actions = batch.action.repeat(n_w)
+        rewards = batch.reward.repeat(n_w, 1)
+        next_obs = batch.next_obs.repeat(n_w, 1)
+        dones = batch.terminated.repeat(n_w)
+
+        target_next = self._envelope_target(ts, next_obs, w, sampled_w)
+        y = rewards + (1.0 - dones[:, None]) * cfg.gamma * target_next
+
+        q = ts.net(obs, w)  # (W*B, A, d)
+        q_sa = torch.gather(q, 1, actions.long()[:, None, None].expand(-1, 1, self.reward_dim)).squeeze(1)
+        l_mo = torch.mean((q_sa - y) ** 2)
+        wq = torch.sum(q_sa * w, dim=-1)
+        wy = torch.sum(y * w, dim=-1)
+        l_scal = torch.mean((wq - wy) ** 2)
+        loss = (1.0 - homotopy_lambda) * l_mo + homotopy_lambda * l_scal
+        return loss, wq - wy, l_mo
+
+    def _update(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
+        """One gradient step on the envelope loss, in place; returns (loss, td_scal[:B]).
+
+        ``sampled_w`` (num_sample_w, d) are the weights the batch is tiled
+        over (drawn inside the JAX package's ``_update``; passed in here so a
+        test can give both the same ones).
+        """
+        params = list(ts.net.parameters())
+        loss, td_scal, _ = self._loss(ts, batch, sampled_w, homotopy_lambda)
+        ts.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        # optax.clip_by_global_norm: scale by max_norm/‖g‖ when ‖g‖ >= max_norm
+        with torch.no_grad():
+            grads = [p.grad for p in params]
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            scale = torch.where(norm < self.cfg.max_grad_norm, 1.0, self.cfg.max_grad_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        ts.optimizer.step()
+        return loss.detach(), td_scal[: batch.obs.shape[0]].detach()
+
+    # ---------------------------------------------------------- train segment
+
+    def _epsilon(self, global_step: int) -> float:
+        # schedules run on the PER-ENV step clock so reference configs (1 env)
+        # keep their meaning at any num_envs
+        cfg = self.cfg
+        if cfg.epsilon_decay_steps is None:
+            return cfg.initial_epsilon
+        return linearly_decaying_value(
+            cfg.initial_epsilon,
+            cfg.epsilon_decay_steps,
+            global_step // cfg.num_envs,
+            cfg.learning_starts // cfg.num_envs,
+            cfg.final_epsilon,
+        )
+
+    def _homotopy_lambda(self, global_step: int) -> float:
+        cfg = self.cfg
+        if cfg.homotopy_decay_steps is None:
+            return cfg.initial_homotopy_lambda
+        return linearly_decaying_value(
+            cfg.initial_homotopy_lambda,
+            cfg.homotopy_decay_steps,
+            global_step // cfg.num_envs,
+            cfg.learning_starts // cfg.num_envs,
+            cfg.final_homotopy_lambda,
+        )
+
+    @torch.no_grad()
+    def _greedy_actions(self, net: EnvelopeQNet, obs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        q = net(obs, weights)  # (N, A, d)
+        return torch.argmax(torch.einsum("nd,nad->na", weights, q), dim=-1)
+
+    def train_segment(self, state: EnvelopeState, num_iters: int) -> EnvelopeState:
+        """Run ``num_iters`` actor-learner iterations, updating ``state`` in place."""
+        cfg = self.cfg
+        n, gen, dev = cfg.num_envs, state.gen, self.device
+        ts, buffer = state.ts, state.buffer
+        for _ in range(num_iters):
+            eps = self._epsilon(state.global_step)
+            # epsilon-greedy batched act
+            greedy = self._greedy_actions(ts.net, state.obs, state.weights)
+            rand_a = torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev)
+            explore = torch.rand((n,), generator=gen, device=dev) < eps
+            actions = torch.where(explore, rand_a, greedy)
+
+            out = self.venv.step(state.env_state, actions, gen)
+            done = out.terminated | out.truncated
+            state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
+
+            # store transitions: next_obs must be the pre-reset final obs
+            buffer.add_batch(
+                Transition(
+                    obs=state.obs,
+                    action=actions,
+                    reward=out.reward,
+                    next_obs=out.final_obs,
+                    terminated=out.terminated.to(torch.float32),
+                )
+            )
+
+            # per-episode weight resampling (reference :526-569)
+            new_w = random_weights(gen, self.reward_dim, n=n, dist="gaussian")
+            state.weights = torch.where(done[:, None], new_w, state.weights)
+            state.env_state, state.obs = out.state, out.obs
+            state.global_step += n
+            state.iter_count += 1
+
+            # learn
+            if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
+                lam = self._homotopy_lambda(state.global_step)
+                for _ in range(cfg.gradient_updates):
+                    if cfg.per:
+                        batch, idx, _probs = buffer.sample(gen, cfg.batch_size)
+                    else:
+                        batch = buffer.sample(gen, cfg.batch_size)
+                    sampled_w = random_weights(gen, self.reward_dim, n=cfg.num_sample_w, dist="gaussian")
+                    state.loss, td = self._update(ts, batch, sampled_w, lam)
+                    if cfg.per:
+                        buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
+
+            # target net update (hard every freq iters, or polyak if tau<1)
+            if cfg.tau < 1.0:
+                polyak_update(ts.net, ts.target_net, cfg.tau)
+            elif state.iter_count % cfg.target_net_update_freq == 0:
+                polyak_update(ts.net, ts.target_net, 1.0)
+        return state
+
+    # ------------------------------------------------------------------ eval
+
+    @torch.no_grad()
+    def act_eval(self, net: EnvelopeQNet, obs: torch.Tensor, w: torch.Tensor, gen=None) -> torch.Tensor:
+        """Greedy scalarized actions for a batch (reference eval/max_action :374-405)."""
+        return self._greedy_actions(net, obs, w)
+
+    def _eval_front(self, net: EnvelopeQNet, weights: torch.Tensor, rep: int, max_steps: int, gen=None) -> torch.Tensor:
+        gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
+        act = lambda obs, w, g: self.act_eval(net, obs, w)
+        return evaluate_front(self.env, act, weights, gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
+
+    # ----------------------------------------------------------------- train
+
+    def train(
+        self,
+        total_timesteps: int,
+        eval_env: MOEnv | None = None,
+        ref_point: np.ndarray | None = None,
+        known_pareto_front: np.ndarray | None = None,
+        eval_freq: int = 10_000,
+        num_eval_weights_for_front: int = 32,
+        num_eval_episodes_for_front: int = 1,
+        eval_max_steps: int | None = None,
+        state: EnvelopeState | None = None,
+    ) -> EnvelopeState:
+        """Host loop: segments of iterations + periodic front evaluation.
+
+        ``eval_env`` is accepted for API parity and unused: the front is
+        evaluated on the training env, as in the JAX package.
+        """
+        cfg = self.cfg
+        state = state if state is not None else self.init_state()
+        eval_weights_np = equally_spaced_weights(self.reward_dim, num_eval_weights_for_front)
+        eval_weights = torch.as_tensor(eval_weights_np, dtype=torch.float32, device=self.device)
+        iters_total = max(1, total_timesteps // cfg.num_envs)
+        seg = max(1, min(eval_freq // cfg.num_envs, iters_total))
+        t0 = time.time()
+        done_iters = 0
+        while done_iters < iters_total:
+            k = min(seg, iters_total - done_iters)
+            state = self.train_segment(state, k)
+            done_iters += k
+            if ref_point is not None:
+                front = (
+                    self._eval_front(
+                        state.ts.net,
+                        eval_weights,
+                        num_eval_episodes_for_front,
+                        eval_max_steps or self.env.max_episode_steps or 500,
+                    )
+                    .cpu()
+                    .numpy()
+                )
+                metrics = multi_policy_metrics(
+                    front, np.asarray(ref_point), eval_weights.cpu().numpy(), known_pareto_front
+                )
+                metrics["charts/SPS"] = state.global_step / (time.time() - t0)
+                self.logger.log(metrics, state.global_step)
+                self._last_front = front
+                self._last_metrics = metrics
+        return state

@@ -1,0 +1,97 @@
+"""Vectorized autoresetting MO envs + episode statistics.
+
+PyTorch port of ``morl_baselines_tpu/envs/vector.py`` (the counterpart of
+MO-Gymnasium's ``MOSyncVectorEnv`` / ``MORecordEpisodeStatistics``).  The N
+env states are (N, ...) tensors on one device and step in one batched call;
+autoreset is a ``torch.where`` select.
+
+Autoreset semantics: *same-step* — when an episode ends, the returned obs is
+already the reset obs, and the pre-reset final obs is returned separately so
+TD targets can bootstrap correctly (``final_obs`` + ``terminated``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from .base import MOEnv
+
+
+class VecStepOut(NamedTuple):
+    state: Any  # env-state NamedTuple of (N, ...) tensors
+    obs: torch.Tensor  # (N, obs_dim) — post-autoreset obs
+    reward: torch.Tensor  # (N, d)
+    terminated: torch.Tensor  # (N,)
+    truncated: torch.Tensor  # (N,)
+    final_obs: torch.Tensor  # (N, obs_dim) — pre-reset obs of this step
+
+
+class VectorMOEnv:
+    """N copies of a batched MOEnv with same-step autoreset."""
+
+    def __init__(self, env: MOEnv, num_envs: int):
+        self.env = env
+        self.num_envs = num_envs
+        self.reward_dim = env.reward_dim
+
+    def reset(self, gen: torch.Generator):
+        return self.env.reset(self.num_envs, gen)
+
+    def step(self, state, actions: torch.Tensor, gen: torch.Generator) -> VecStepOut:
+        n = self.num_envs
+        out = self.env.step(state, actions, self.env.sample_noise(n, gen))
+        done = out.terminated | out.truncated
+        reset_state, reset_obs = self.env.reset(n, gen)
+        # select reset state/obs where done (same-step autoreset)
+        new_state = type(out.state)(
+            *(
+                torch.where(done.reshape(done.shape + (1,) * (s.dim() - 1)), r, s)
+                for r, s in zip(reset_state, out.state)
+            )
+        )
+        obs = torch.where(done[:, None], reset_obs, out.obs)
+        return VecStepOut(new_state, obs, out.reward, out.terminated, out.truncated, out.obs)
+
+
+class EpisodeStats(NamedTuple):
+    """Per-env episode accumulators; reported rows are only meaningful at done."""
+
+    ret: torch.Tensor  # (N, d) undiscounted vector return
+    disc_ret: torch.Tensor  # (N, d) discounted vector return
+    length: torch.Tensor  # (N,)
+    gamma_pow: torch.Tensor  # (N,)
+
+    @staticmethod
+    def create(num_envs: int, reward_dim: int, device) -> "EpisodeStats":
+        return EpisodeStats(
+            ret=torch.zeros((num_envs, reward_dim), device=device),
+            disc_ret=torch.zeros((num_envs, reward_dim), device=device),
+            length=torch.zeros((num_envs,), dtype=torch.int32, device=device),
+            gamma_pow=torch.ones((num_envs,), device=device),
+        )
+
+    def update(self, reward: torch.Tensor, done: torch.Tensor, gamma: float):
+        """Returns (next_stats, finished: EpisodeStats of rows that just ended).
+
+        ``finished`` holds the completed-episode statistics (the reference's
+        info["episode"] r/dr/l); rows where ``done`` is False are zeros.
+        """
+        ret = self.ret + reward
+        disc = self.disc_ret + self.gamma_pow[:, None] * reward
+        length = self.length + 1
+        d = done[:, None]
+        finished = EpisodeStats(
+            ret=torch.where(d, ret, 0.0),
+            disc_ret=torch.where(d, disc, 0.0),
+            length=torch.where(done, length, 0),
+            gamma_pow=torch.zeros_like(self.gamma_pow),
+        )
+        nxt = EpisodeStats(
+            ret=torch.where(d, 0.0, ret),
+            disc_ret=torch.where(d, 0.0, disc),
+            length=torch.where(done, 0, length),
+            gamma_pow=torch.where(done, 1.0, self.gamma_pow * gamma),
+        )
+        return nxt, finished

@@ -1,0 +1,92 @@
+"""Device-resident uniform replay buffer.
+
+PyTorch port of ``morl_baselines_tpu/replay/buffer.py`` (reference
+morl_baselines/common/buffer.py:50-135).  The storage is preallocated tensors
+on one device, written **in place** (``index_copy_``) instead of returning a
+new pytree; the write pointer and the fill size are host integers, so adding
+and sampling never wait on the device.
+
+Supports batched adds (N transitions per env-step from the vectorized env)
+via scatter at ring positions, and CER ("use latest transition in every
+sampled batch", reference buffer.py:103-106) as an option on ``sample``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor  # (d,) vector reward
+    next_obs: torch.Tensor
+    terminated: torch.Tensor  # float 0/1
+
+
+def _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device) -> Transition:
+    return Transition(
+        obs=torch.zeros((capacity, obs_dim), dtype=obs_dtype, device=device),
+        action=torch.zeros((capacity, *action_shape), dtype=action_dtype, device=device),
+        reward=torch.zeros((capacity, reward_dim), dtype=torch.float32, device=device),
+        next_obs=torch.zeros((capacity, obs_dim), dtype=obs_dtype, device=device),
+        terminated=torch.zeros((capacity,), dtype=torch.float32, device=device),
+    )
+
+
+class ReplayBuffer:
+    def __init__(self, data: Transition):
+        self.data = data  # tensors of shape (capacity, ...)
+        self.ptr = 0  # next write position
+        self.size = 0  # number of valid rows
+
+    @property
+    def capacity(self) -> int:
+        return self.data.obs.shape[0]
+
+    @staticmethod
+    def create(
+        capacity: int,
+        obs_dim: int,
+        action_shape: tuple = (),
+        reward_dim: int = 2,
+        action_dtype=torch.int64,
+        obs_dtype=torch.float32,
+        device="cuda",
+    ) -> "ReplayBuffer":
+        return ReplayBuffer(_storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device))
+
+    def _ring_idx(self, n: int) -> torch.Tensor:
+        return (self.ptr + torch.arange(n, device=self.data.obs.device)) % self.capacity
+
+    def add_batch(self, batch: Transition) -> "ReplayBuffer":
+        """Insert N transitions at the ring pointer (N = leading dim), in place."""
+        n = batch.obs.shape[0]
+        idx = self._ring_idx(n)
+        for buf, new in zip(self.data, batch):
+            buf.index_copy_(0, idx, new.to(buf.dtype))
+        self.ptr = (self.ptr + n) % self.capacity
+        self.size = min(self.size + n, self.capacity)
+        return self
+
+    def gather(self, idx: torch.Tensor) -> Transition:
+        """The rows at ``idx``."""
+        return Transition(*(x[idx] for x in self.data))
+
+    def sample(self, gen: torch.Generator, batch_size: int, use_cer: bool = False) -> Transition:
+        """Uniform sample of batch_size transitions (with replacement).
+
+        use_cer: overwrite index 0 with the most recent transition
+        (reference buffer.py:103-106).
+        """
+        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen, device=gen.device)
+        if use_cer:
+            idx[0] = (self.ptr - 1) % self.capacity
+        return self.gather(idx)
+
+    def sample_obs(self, gen: torch.Generator, batch_size: int) -> torch.Tensor:
+        """Sample observations only (reference buffer.py:118-124, used by Dyna)."""
+        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen, device=gen.device)
+        return self.data.obs[idx]

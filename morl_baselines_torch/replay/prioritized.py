@@ -1,0 +1,67 @@
+"""Device-resident prioritized replay — cumsum + searchsorted sampling.
+
+PyTorch port of ``morl_baselines_tpu/replay/prioritized.py``, the re-design of
+the reference's SumTree PER (reference
+morl_baselines/common/prioritized_buffer.py:12-226): one ``cumsum`` and one
+``searchsorted`` over the priority vector per sample, priority updates as
+plain scatters.  Storage and priorities are written in place; the running
+max priority stays a device scalar, so nothing waits on the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .buffer import ReplayBuffer, Transition, _storage
+
+
+class PrioritizedReplayBuffer(ReplayBuffer):
+    def __init__(self, data: Transition):
+        super().__init__(data)
+        dev = data.obs.device
+        self.priorities = torch.zeros((self.capacity,), dtype=torch.float32, device=dev)  # 0 for empty rows
+        self.max_priority = torch.ones((), dtype=torch.float32, device=dev)  # for new inserts (reference :150)
+
+    @staticmethod
+    def create(
+        capacity: int,
+        obs_dim: int,
+        action_shape: tuple = (),
+        reward_dim: int = 2,
+        action_dtype=torch.int64,
+        obs_dtype=torch.float32,
+        device="cuda",
+    ) -> "PrioritizedReplayBuffer":
+        return PrioritizedReplayBuffer(
+            _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device)
+        )
+
+    def add_batch(self, batch: Transition, priority: torch.Tensor | None = None) -> "PrioritizedReplayBuffer":
+        """Insert N transitions with priority (default: current max, reference :147-156)."""
+        n = batch.obs.shape[0]
+        idx = self._ring_idx(n)
+        p = self.max_priority if priority is None else priority
+        self.priorities.index_copy_(0, idx, torch.broadcast_to(p, (n,)).to(torch.float32))
+        return super().add_batch(batch)
+
+    def sample(self, gen: torch.Generator, batch_size: int):
+        """Proportional sampling: returns (batch, idx, probs)."""
+        return self.sample_at(torch.rand((batch_size,), generator=gen, device=gen.device))
+
+    def sample_at(self, u: torch.Tensor):
+        """Proportional sampling at given uniforms ``u`` in [0, 1).
+
+        Inverse CDF on the cumulative priorities, as SumTree.sample's
+        proportional scheme (reference :30-54).  Returns (batch, idx, probs).
+        """
+        cdf = torch.cumsum(self.priorities, dim=0)
+        total = torch.clamp(cdf[-1], min=1e-12)
+        idx = torch.clamp(torch.searchsorted(cdf, u * total, right=True), 0, self.capacity - 1)
+        return self.gather(idx), idx, self.priorities[idx] / total
+
+    def update_priorities(self, idx: torch.Tensor, priorities: torch.Tensor) -> "PrioritizedReplayBuffer":
+        """Scatter new priorities, tracking the running max (reference :197-205)."""
+        p = torch.clamp(priorities, min=1e-12)
+        self.priorities[idx] = p
+        self.max_priority = torch.maximum(self.max_priority, p.max())
+        return self

@@ -1,0 +1,51 @@
+"""Metric logging — reference-compatible names, stdout and JSONL sinks.
+
+PyTorch port of ``morl_baselines_tpu/utils/logging.py``.  The metric keys and
+the ``global_step`` step semantics are the reference's (reference
+common/morl_algorithm.py:283-337, evaluation.py:147-277), so curves are
+directly comparable.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any
+
+
+class MetricLogger:
+    def __init__(
+        self,
+        experiment: str = "run",
+        jsonl_path: str | Path | None = None,
+        stdout_every: int = 1,
+        enabled: bool = True,
+    ):
+        self.experiment = experiment
+        self.enabled = enabled
+        self.stdout_every = stdout_every
+        self._n = 0
+        self._jsonl = None
+        self._t0 = time.time()
+        if enabled and jsonl_path is not None:
+            Path(jsonl_path).parent.mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(jsonl_path, "a")
+
+    def log(self, metrics: dict[str, Any], global_step: int) -> None:
+        if not self.enabled:
+            return
+        payload = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
+        payload["global_step"] = int(global_step)
+        self._n += 1
+        if self._n % self.stdout_every == 0:
+            keys = ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in payload.items())
+            print(f"[{time.time() - self._t0:8.1f}s] {keys}")
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(payload) + "\n")
+            self._jsonl.flush()
+
+    def close(self) -> None:
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None

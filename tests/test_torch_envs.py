@@ -1,0 +1,173 @@
+"""Parity of the torch port's envs with the JAX package's, on identical inputs.
+
+Batched random states and actions are made with numpy from a seed and handed
+to both steps.  The JAX minecart step draws its ore noise from a key, so the
+test draws those same normals from the same keys and hands them to the port.
+Tolerance of a step: atol 1e-6 (float32 sin/cos and sums may round
+differently in the two libraries).
+"""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from morl_baselines_tpu.envs import EpisodeStats as JEpisodeStats
+from morl_baselines_tpu.envs import VectorMOEnv as JVectorMOEnv
+from morl_baselines_tpu.envs import make as jmake
+from morl_baselines_tpu.envs.dst import DSTState as JDSTState
+from morl_baselines_tpu.envs.minecart import MinecartState as JMinecartState
+from morl_baselines_torch.envs import EpisodeStats, VectorMOEnv, make
+from morl_baselines_torch.envs.dst import DSTState
+from morl_baselines_torch.envs.minecart import _MINE_POS, MinecartState
+
+torch.set_num_threads(1)
+ATOL = 1e-6
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
+
+
+def _assert_step_equal(jout, tout):
+    for a, b in zip(jout.state, tout.state):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=ATOL)
+    np.testing.assert_allclose(np.asarray(jout.obs), tout.obs.numpy(), atol=ATOL)
+    np.testing.assert_allclose(np.asarray(jout.reward), tout.reward.numpy(), atol=ATOL)
+    np.testing.assert_array_equal(np.asarray(jout.terminated), tout.terminated.numpy())
+    np.testing.assert_array_equal(np.asarray(jout.truncated), tout.truncated.numpy())
+
+
+def _minecart_states(rng, n):
+    """Random states: a third near a mine, a third near home with cargo, a third anywhere."""
+    k = n // 3
+    pos = rng.uniform(0, 1, size=(n, 2))
+    pos[:k] = _MINE_POS[rng.integers(0, 5, size=k)] + rng.normal(scale=0.08, size=(k, 2))
+    pos[k : 2 * k] = rng.uniform(0, 0.2, size=(k, 2))
+    return dict(
+        pos=np.clip(pos, 0, 1).astype(np.float32),
+        speed=rng.uniform(0, 0.02, size=n).astype(np.float32),
+        angle=rng.uniform(-np.pi, 2 * np.pi, size=n).astype(np.float32),
+        cargo=rng.uniform(0, 0.75, size=(n, 2)).astype(np.float32),
+        departed=rng.uniform(size=n) < 0.7,
+        t=rng.integers(990, 1001, size=n).astype(np.int32),
+    )
+
+
+@pytest.mark.parametrize("env_id", ["minecart-v0", "minecart-deterministic-v0"])
+def test_minecart_step_parity(env_id):
+    rng = np.random.default_rng(0)
+    n = 600
+    st = _minecart_states(rng, n)
+    actions = rng.integers(0, 6, size=n)
+    keys = jax.random.split(jax.random.key(int(rng.integers(1 << 30))), n)
+    jenv, tenv = jmake(env_id), make(env_id)
+
+    jout = jax.vmap(jenv.step)(
+        JMinecartState(**{k: jnp.asarray(v) for k, v in st.items()}), jnp.asarray(actions, jnp.int32), keys
+    )
+    noise = None
+    if not tenv.deterministic:
+        noise = torch.as_tensor(np.array(jax.vmap(lambda k: jax.random.normal(k, (2,)))(keys)))
+    tout = tenv.step(MinecartState(**{k: torch.as_tensor(v) for k, v in st.items()}), torch.as_tensor(actions), noise)
+    _assert_step_equal(jout, tout)
+    # the batch exercises mining, selling and truncation
+    assert (tout.state.cargo.sum(-1) > torch.as_tensor(st["cargo"]).sum(-1)).any()
+    assert tout.terminated.any() and tout.truncated.any()
+
+
+def test_dst_step_parity():
+    rng = np.random.default_rng(1)
+    n = 500
+    depths = np.array([1, 2, 3, 4, 4, 4, 7, 7, 9, 10])
+    col = rng.integers(0, 10, size=n)
+    row = np.minimum(rng.integers(0, 11, size=n), depths[col])
+    st = dict(row=row.astype(np.int32), col=col.astype(np.int32), t=rng.integers(490, 501, size=n).astype(np.int32))
+    actions = rng.integers(0, 4, size=n)
+    jenv, tenv = jmake("deep-sea-treasure-v0"), make("deep-sea-treasure-v0")
+    jout = jax.vmap(jenv.step)(
+        JDSTState(**{k: jnp.asarray(v) for k, v in st.items()}),
+        jnp.asarray(actions, jnp.int32),
+        jax.random.split(jax.random.key(0), n),
+    )
+    tout = tenv.step(DSTState(**{k: torch.as_tensor(v) for k, v in st.items()}), torch.as_tensor(actions))
+    _assert_step_equal(jout, tout)
+    assert tout.terminated.any() and tout.truncated.any()
+
+
+@pytest.mark.parametrize("env_id", ["minecart-v0", "deep-sea-treasure-v0"])
+def test_pareto_front_parity(env_id):
+    """The simulated minecart front (60 scripted policies, 1000 steps) and the
+    closed-form DST front agree with the JAX package's and its fixture."""
+    got = make(env_id).pareto_front(0.98)
+    ref = np.asarray(jmake(env_id).pareto_front(0.98))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.load(FIXTURES / f"front_{env_id}.npy"), rtol=1e-5, atol=1e-6)
+
+
+def test_minecart_deterministic_front_equals_stochastic_front():
+    np.testing.assert_array_equal(
+        make("minecart-deterministic-v0").pareto_front(0.98), make("minecart-v0").pareto_front(0.98)
+    )
+
+
+@pytest.mark.parametrize("env_id", ["deep-sea-treasure-v0", "minecart-deterministic-v0"])
+def test_vector_autoreset_and_stats_parity(env_id):
+    """Same-step autoreset, final_obs and EpisodeStats over 300 steps of
+    identical random actions (deterministic envs: no noise to share)."""
+    n, steps, gamma = 32, 300, 0.99
+    kw = {"max_episode_steps": 60}
+    jvenv, tvenv = JVectorMOEnv(jmake(env_id, **kw), n), VectorMOEnv(make(env_id, **kw), n)
+    gen = torch.Generator().manual_seed(0)
+    jstate, jobs = jvenv.reset(jax.random.key(0))
+    tstate, tobs = tvenv.reset(gen)
+    d = tvenv.reward_dim
+    jstats, tstats = JEpisodeStats.create(n, d), EpisodeStats.create(n, d, "cpu")
+    jstep = jax.jit(lambda s, a, st: _jax_vec_step(jvenv, s, a, st, gamma))
+    actions = np.random.default_rng(2).integers(0, tvenv.env.num_actions, size=(steps, n))
+    n_done = 0
+    for a in actions:
+        jout, jstats, jfin = jstep(jstate, jnp.asarray(a, jnp.int32), jstats)
+        tout = tvenv.step(tstate, torch.as_tensor(a), gen)
+        tstats, tfin = tstats.update(tout.reward, tout.terminated | tout.truncated, gamma)
+        for name in ("obs", "final_obs", "reward", "terminated", "truncated"):
+            np.testing.assert_allclose(np.asarray(getattr(jout, name)), getattr(tout, name).numpy(), atol=ATOL)
+        for a_, b_ in zip(jfin, tfin):
+            np.testing.assert_allclose(np.asarray(a_), b_.numpy(), atol=1e-5)
+        jstate, tstate = jout.state, tout.state
+        done = tout.terminated | tout.truncated
+        n_done += int(done.sum())
+        # final_obs is the pre-reset obs; obs is the reset obs where done
+        assert torch.equal(tout.obs[~done], tout.final_obs[~done])
+    assert n_done > 0
+    for a_, b_ in zip(jstats, tstats):
+        np.testing.assert_allclose(np.asarray(a_), b_.numpy(), atol=1e-5)
+
+
+def _jax_vec_step(jvenv, state, actions, stats, gamma):
+    out = jvenv.step(state, actions, jax.random.key(0))
+    stats, fin = stats.update(out.reward, out.terminated | out.truncated, gamma)
+    return out, stats, fin
+
+
+def test_registry_and_sell_cycle():
+    with pytest.raises(KeyError):
+        make("fishwood-v0")
+    env = make("minecart-deterministic-v0")
+    assert env.name == "minecart-deterministic-v0" and env.obs_dim == 7 and env.num_actions == 6
+    # mirror tests/test_envs.py::test_minecart_sell_cycle on a batch of one
+    state, obs = env.reset(1, torch.Generator())
+    assert obs.shape == (1, 7)
+    plan = [3] * 35 + [4] * 5 + [0] * 3 + [1] * 12
+    for a in plan:
+        out = env.step(state, torch.tensor([a]))
+        state = out.state
+    assert float(state.cargo.sum()) > 0
+    for _ in range(120):
+        out = env.step(state, torch.tensor([3]))
+        state = out.state
+        if bool(out.terminated):
+            break
+    assert bool(out.terminated)
+    r = out.reward[0]
+    assert r[0] > 0 and r[1] > 0 and r[2] < 0

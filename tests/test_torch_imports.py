@@ -1,0 +1,60 @@
+"""The port stands alone: no JAX, and no silent CPU fallback.
+
+Every module of ``morl_baselines_torch`` and ``chip_smoke.py`` is imported in a
+fresh interpreter, which must then hold no ``jax``, ``flax``, ``optax``,
+``orbax`` or ``morl_baselines_tpu`` module.  An entry point given no device
+asks for CUDA and raises where there is none.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from morl_baselines_torch.agents import Envelope, EnvelopeConfig
+from morl_baselines_torch.core import DeviceParetoFront
+from morl_baselines_torch.envs import make
+
+torch.set_num_threads(1)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import morl_baselines_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "morl_baselines_tpu")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(json.dumps({"modules": len(names), "leaked": leaked}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["modules"] >= 20, got
+    assert got["leaked"] == [], f"the port pulled in {got['leaked']}"
+
+
+def test_entry_points_need_cuda_by_default(monkeypatch):
+    """With no ``device`` an entry point asks for CUDA and, without it, raises
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = EnvelopeConfig(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Envelope(make("minecart-v0"), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceParetoFront.create(8, 3)
+    # asking for the CPU explicitly works
+    assert Envelope(make("minecart-v0"), cfg, device="cpu").device.type == "cpu"
