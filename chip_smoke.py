@@ -3,14 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``morl_baselines_torch/csrc`` with nvcc
-(sm_90a), holds it bitwise against its plain PyTorch version at several
-sizes and times both, then drives the main path — Envelope Q-learning on
-minecart at the accelerator config of ``bench.py::bench_envelope_minecart``
-(32768 envs, (256,)*4 Q-net) — through ``train_segment`` and ``Envelope.train``
-and scores the evaluated front on the card, which runs the kernel.  Every
-phase raises on a mismatch; the script exits non-zero without a result when
-CUDA is absent.  The second-to-last line is a JSON record of the kernels, the
-last line ``{"ok": true, "device": {...}}``.
+(sm_90a) and prints ptxas's registers and spills.  Holds the kernel bitwise
+against its plain PyTorch version on random, ``front``, ``archive_add`` and
+``inf`` inputs that reach both launch configurations (one block for small N,
+column chunks spread over the card above) and both compare paths (arithmetic
+on finite tiles, predicates on the rest), and times both at the main path's size and
+at archive scale (N=131072), with the profiler's device time beside the event
+time.  Drives ``DeviceParetoFront.add`` at archive scale (65536 + 65536 points)
+and checks the kept set against the plain path.  Then drives the main path —
+Envelope Q-learning on minecart at the accelerator config of
+``bench.py::bench_envelope_minecart`` (32768 envs, (256,)*4 Q-net) — through
+``train_segment`` and ``Envelope.train`` and scores the evaluated front on the
+card, which runs the kernel.  Every phase raises on a mismatch; the
+script exits non-zero without a result when CUDA is absent.  The
+second-to-last line is a JSON record of the kernels, the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -30,13 +37,11 @@ from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights,
 from morl_baselines_torch.envs import make
 from morl_baselines_torch.evaluation import device_front_metrics
 from morl_baselines_torch.ops import _build
-from morl_baselines_torch.ops.pareto_kernel import non_dominated_mask_cuda, non_dominated_mask_plain
+from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): float32 outside the tensor cores, HBM3
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-# int32 lanes outside the tensor cores (Hopper white paper: 64 per SM, 132 SMs, 1.98 GHz boost)
-PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 NUM_ENVS = 32768
 CONFIG = EnvelopeConfig(
@@ -74,20 +79,64 @@ def time_ms(fn, warmup: int = 3, runs: int = 15, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def nd_inputs(seed: int, n: int, d: int):
-    """Normal points with planted groups of exact duplicates and a random valid mask."""
+def sphere(rng, n: int, d: int) -> np.ndarray:
+    """n float32 points on the positive orthant of the unit sphere: mutually
+    non-dominated, bar rare ties from rounding."""
+    p = np.abs(rng.normal(size=(n, d))).astype(np.float32)
+    return p / np.linalg.norm(p, axis=1, keepdims=True)
+
+
+def nd_inputs(seed: int, n: int, d: int, family: str = "random"):
+    """Points and valid mask on the card for one input family:
+
+    - ``random``: normal points with planted groups of exact duplicates and a
+      random valid mask; almost every row has a dominator early on.
+    - ``front``: ``sphere`` points, all valid; no row has a dominator, so every
+      row scans every column.
+    - ``archive_add``: what ``DeviceParetoFront.create(n // 2, d).add(n // 2
+      candidates)`` hands the mask when the archive is full: rows below n // 2
+      are a ``front``; of the candidates, half are new sphere points and half
+      sphere points scaled by a factor in [0.9, 0.999), dominated only by near
+      neighbours; about 1% of the candidates are exact copies of archive rows.
+    - ``inf``: points on a coarse grid (ties and signed zeros), the rows of the
+      second half with +-inf coordinates, three valid rows all -inf, planted
+      duplicates there: the tiles of the first half take the arithmetic path,
+      the rest the exact predicate path.
+    """
     rng = np.random.default_rng(seed)
-    pts = rng.normal(size=(n, d)).astype(np.float32)
-    k = max(1, n // 10)
-    pts[rng.integers(0, n, size=k)] = pts[rng.integers(0, n, size=k)]
-    valid = rng.uniform(size=n) > 0.2
+    if family == "random":
+        pts = rng.normal(size=(n, d)).astype(np.float32)
+        k = max(1, n // 10)
+        pts[rng.integers(0, n, size=k)] = pts[rng.integers(0, n, size=k)]
+        valid = rng.uniform(size=n) > 0.2
+    elif family == "front":
+        pts, valid = sphere(rng, n, d), np.ones(n, dtype=bool)
+    elif family == "archive_add":
+        half, m = n // 2, n - n // 2
+        front, cand = sphere(rng, half, d), sphere(rng, m, d)
+        cand[m // 2 :] *= rng.uniform(0.9, 0.999, size=(m - m // 2, 1)).astype(np.float32)
+        k = max(1, n // 100)
+        cand[rng.integers(0, m, size=k)] = front[rng.integers(0, half, size=k)]
+        pts, valid = np.concatenate([front, cand]), np.ones(n, dtype=bool)
+    elif family == "inf":
+        pts = (np.round(2 * rng.normal(size=(n, d))) / 2).astype(np.float32)
+        tail = pts[n // 2 :]
+        tail[rng.uniform(size=tail.shape) < 0.1] = -np.inf
+        tail[rng.uniform(size=tail.shape) < 0.05] = np.inf
+        tail[:3] = -np.inf
+        k = max(1, n // 20)
+        pts[rng.integers(n // 2, n, size=k)] = pts[rng.integers(0, n, size=k)]
+        valid = rng.uniform(size=n) > 0.2
+        valid[n // 2 : n // 2 + 3] = True
+    else:
+        raise ValueError(f"unknown input family {family!r}")
     return torch.as_tensor(pts, device="cuda"), torch.as_tensor(valid, device="cuda")
 
 
 def nd_bound_ms(points: torch.Tensor, valid: torch.Tensor, keep_duplicates: bool, block_rows: int = 1024):
     """(least time, what sets it, pairs compared) for the mask on these inputs: the larger of
-    bytes/HBM rate and ops/f32 rate.  Ops count (3d + 2) per pair actually needed: each
-    valid row against the columns up to its first dominator (all N if none)."""
+    bytes/HBM rate and ops/f32 rate.  Ops count (3d + 2) per pair actually needed: each valid
+    row against the columns up to its first dominator (all N if none)."""
     n, d = points.shape
     pairs = 0
     col_idx = torch.arange(n, device=points.device)
@@ -98,7 +147,8 @@ def nd_bound_ms(points: torch.Tensor, valid: torch.Tensor, keep_duplicates: bool
         hit = gt if keep_duplicates else gt | (col_idx[None, :] < col_idx[start : start + block_rows, None])
         hit = ge & hit & valid[None, :]
         first = torch.where(hit.any(-1), hit.to(torch.uint8).argmax(-1) + 1, n)
-        pairs += int(torch.where(valid[start : start + block_rows], first, 0).sum())
+        first = torch.where(valid[start : start + block_rows], first, 0)
+        pairs += int(first.sum())
     t_bytes = (n * (4 * d + 1) + n) / PEAK_BYTES  # points and valid read once, mask written once
     t_ops = pairs * (3 * d + 2) / PEAK_F32_OPS
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pairs
@@ -118,44 +168,105 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[build] {sorted(built) or 'nothing to build'} in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
+    for _, out in built.values():  # ptxas: registers, shared memory and spills of each kernel
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
+
+
+# (family, N, d): every one is held bitwise against the plain version in both dedup modes
+ND_INPUTS = [
+    ("random", 32, 3), ("random", 37, 3), ("random", 96, 3), ("random", 1000, 3), ("random", 8192, 3),
+    ("random", 131072, 3), ("random", 1000, 2), ("random", 1000, 4), ("random", 1000, 8),
+    ("front", 131072, 3), ("archive_add", 131072, 3),
+    # each launch configuration: the largest single-block N, the smallest chunked N, R = 2 rows a lane
+    # (d > 8), a small archive add, and d = 1 (every front point is the same point: all duplicates)
+    ("random", 256, 3), ("random", 257, 3), ("front", 4096, 16), ("archive_add", 8192, 3), ("front", 3000, 1),
+    # +-inf on valid rows, one block and chunked: the exact predicate path, both dedup modes
+    ("inf", 200, 3), ("inf", 3000, 3),
+]  # fmt: skip
+# timed: the main path's archive add (N=96) and archive-scale inputs
+ND_TIMED = {("random", 96, 3), ("random", 8192, 3), ("random", 131072, 3), ("front", 131072, 3), ("archive_add", 131072, 3)}
+
+
+def device_ms(fn, name: str = "nd_mask", calls: int = 20) -> float | None:
+    """The kernel's own time per call, read from a short torch.profiler window:
+    the device time of every kernel whose name holds ``name``, over ``calls``.
+    None when the trace holds no device time (then it is not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        _device_us(e)
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and name in e.key
+    )
+    return us / 1e3 / calls if us else None
+
+
+def plan_name(n: int, d: int) -> str:
+    p = nd_launch_plan(n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    if p.n_chunks == 1:
+        return f"single block, {p.warps_per_block} warps"
+    return f"{p.row_tiles} row tiles x {p.n_chunks} chunks of {p.chunk_tiles} column tiles, {p.blocks} blocks"
+
+
+def fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def phase_kernel_vs_plain(smi: str) -> list[dict]:
-    """Bitwise comparison at every size and both dedup modes; timings at the
-    sizes the archive and the main path give the kernel."""
-    sizes = [(32, 3), (37, 3), (96, 3), (1000, 3), (8192, 3), (131072, 3), (1000, 2), (1000, 4), (1000, 8)]
-    timed = {(96, 3), (8192, 3), (131072, 3)}
+    """Bitwise comparison on every input and both dedup modes; timings on the
+    inputs the archive and the main path give the kernel."""
     rows = []
-    for seed, (n, d) in enumerate(sizes):
-        pts, valid = nd_inputs(seed, n, d)
+    configs = {nd_launch_plan(n, d, 1).n_chunks > 1 for _, n, d in ND_INPUTS}
+    if configs != {False, True}:
+        raise AssertionError("the inputs must reach both the single-block and the chunked launch")
+    for seed, (family, n, d) in enumerate(ND_INPUTS):
+        pts, valid = nd_inputs(seed, n, d, family)
         for keep in (True, False):
             got = non_dominated_mask_cuda(pts, valid, keep)
             want = non_dominated_mask_plain(pts, valid, keep)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain at N={n} d={d} keep_duplicates={keep}")
-            line = f"[kernel] N={n} d={d} keep_duplicates={keep}: bitwise equal ({int(got.sum())} non-dominated)"
-            if (n, d) in timed:
-                bound_ms, bound_by, pairs = nd_bound_ms(pts, valid, keep)
-                full_ops = n * n * (3 * d + 2)  # every row against every column, no early exit
-                row = dict(
-                    n=n,
-                    d=d,
-                    keep_duplicates=keep,
-                    ms=time_ms(lambda: non_dominated_mask_cuda(pts, valid, keep)),
-                    plain_ms=time_ms(
-                        lambda: non_dominated_mask_plain(pts, valid, keep), warmup=1, runs=5, reps=20 if n <= 8192 else 1
-                    ),
-                    bound_ms=bound_ms,
-                    bound_by=bound_by,
-                    pairs_needed=pairs,
-                    full_scan_ms_f32=1e3 * full_ops / PEAK_F32_OPS,
-                    full_scan_ms_int32=1e3 * full_ops / PEAK_INT32_OPS,
-                )
+                raise AssertionError(f"kernel != plain on {family} N={n} d={d} keep_duplicates={keep}")
+            line = f"[kernel] {family} N={n} d={d} keep_duplicates={keep} ({plan_name(n, d)}): bitwise equal ({int(got.sum())} non-dominated)"
+            if (family, n, d) in ND_TIMED:
+                row = timed_row(family, pts, valid, keep)
                 rows.append(row)
-                line += f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms [{smi}]"
+                line += (
+                    f"; kernel {row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.6f} ms ({100 * row['bound_ms'] / row['ms']:.2f}% of it), "
+                    f"full scan {row['full_scan_ms_f32']:.4f} ms ({100 * row['full_scan_ms_f32'] / row['ms']:.2f}%)"
+                    f" [{smi}]"
+                )
             log(line)
     return rows
+
+
+def timed_row(family: str, pts, valid, keep: bool) -> dict:
+    n, d = pts.shape
+    bound_ms, bound_by, pairs = nd_bound_ms(pts, valid, keep)
+    full_ops = n * n * (3 * d + 2)  # every row against every column, no early exit
+    kernel = lambda: non_dominated_mask_cuda(pts, valid, keep)  # noqa: E731
+    return dict(
+        family=family,
+        n=n,
+        d=d,
+        keep_duplicates=keep,
+        ms=time_ms(kernel),
+        device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: non_dominated_mask_plain(pts, valid, keep), warmup=1, runs=5, reps=20 if n <= 8192 else 1),
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        pairs_needed=pairs,
+        full_scan_ms_f32=1e3 * full_ops / PEAK_F32_OPS,
+    )
 
 
 def phase_train_segment(smi: str) -> None:
@@ -262,6 +373,44 @@ def phase_train_and_score() -> None:
         f"archive holds {len(got)} points; kernel launched {launched} times")
 
 
+def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
+    """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
+    all_vals = torch.cat([front.values, cand], dim=0)
+    all_valid = torch.cat([front.valid, torch.ones(cand.shape[0], dtype=torch.bool, device=cand.device)])
+    nd = non_dominated_mask_plain(all_vals, all_valid, keep_duplicates=False)
+    score = nd.to(torch.float32) * 1e6 + torch.where(nd, all_vals.sum(dim=-1), 0.0)
+    _, top = torch.topk(score, front.values.shape[0])
+    return DeviceParetoFront(values=all_vals[top], valid=nd[top])
+
+
+def phase_archive_add(smi: str, n: int = 131072, d: int = 3) -> dict:
+    """The archive path at archive scale, through the entry point: a full
+    archive of n // 2 front points takes n // 2 candidates (``archive_add``)."""
+    pts, _ = nd_inputs(ND_INPUTS.index(("archive_add", n, d)), n, d, "archive_add")
+    front, cand = pts[: n // 2], pts[n // 2 :]
+    before = non_dominated_mask_cuda.launches
+    archive = DeviceParetoFront.create(n // 2, d, device="cuda").add(front)
+    full = archive.add(cand)
+    torch.cuda.synchronize()
+    launched = non_dominated_mask_cuda.launches - before
+    if launched < 2:
+        raise AssertionError(f"two archive adds launched the kernel {launched} times, expected >= 2")
+    got = np.unique(full.values[full.valid].cpu().numpy(), axis=0)
+    want_front = add_plain(archive, cand)
+    want = np.unique(want_front.values[want_front.valid].cpu().numpy(), axis=0)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"archive add keeps {len(got)} points, the plain path {len(want)}, or other ones")
+    all_vals = torch.cat([archive.values, cand])
+    all_valid = torch.cat([archive.valid, torch.ones(cand.shape[0], dtype=torch.bool, device="cuda")])
+    add_ms = time_ms(lambda: archive.add(cand), warmup=1, runs=5, reps=3)
+    mask_ms = time_ms(lambda: non_dominated_mask_cuda(all_vals, all_valid, False), warmup=1, runs=5, reps=3)
+    res = dict(n=n, d=d, held=int(archive.valid.sum()), kept=len(got), launched=launched, add_ms=add_ms, mask_ms=mask_ms)
+    log(f"[archive] DeviceParetoFront.create({n // 2}, {d}) holding {res['held']} front points .add({n // 2} candidates): "
+        f"keeps {len(got)} points, the same set as the plain path; kernel launched {launched} times over two adds; "
+        f"add {add_ms:.4f} ms, of which the mask {mask_ms:.4f} ms ({100 * mask_ms / add_ms:.1f}%) [{smi}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -270,6 +419,7 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     timed = phase_kernel_vs_plain(smi)
+    archive = phase_archive_add(smi)
 
     non_dominated_mask_cuda.launches = 0  # count the main path's launches only
     phase_train_segment(smi)
@@ -287,12 +437,14 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": 0.0,  # every comparison above is bitwise
         "ms": main_shape["ms"],
+        "device_ms": main_shape["device_ms"],  # the kernel's own time, from the profiler; ms is host-bound here
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a Pareto mask
         "at": "N=96 d=3 keep_duplicates=False (DeviceParetoFront.add on the main path)",
         "sizes": timed,
+        "archive_add": archive,
     }
     log(smi)
     print(json.dumps({"kernels": [record]}))

@@ -6,7 +6,8 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 The library's file name carries a hash of its source, so an edited source is
 never served by a stale build.  ``build`` starts one ``nvcc`` per missing
 library, all at once, and waits for them; a failed build raises with the
-compiler's output.
+compiler's output.  ``-Xptxas -v`` makes that output list each kernel's
+registers, shared memory and spills.
 """
 
 from __future__ import annotations
@@ -22,7 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "morl_torch_kernels"
 KERNELS = ("pareto_nd",)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+]  # fmt: skip
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -44,8 +48,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names=KERNELS) -> dict[str, float]:
-    """Compile every missing library in parallel; return seconds per name built."""
+def build(names=KERNELS) -> dict[str, tuple[float, str]]:
+    """Compile every missing library in parallel; return (seconds, compiler
+    output) per name built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -56,14 +61,14 @@ def build(names=KERNELS) -> dict[str, float]:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
-    seconds = {}
+    built = {}
     for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-        seconds[name] = time.perf_counter() - t0
-    return seconds
+        built[name] = (time.perf_counter() - t0, out)
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:

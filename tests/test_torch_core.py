@@ -27,9 +27,15 @@ from morl_baselines_torch.core.pareto import non_dominated_mask
 from morl_baselines_torch.core.weights import equally_spaced_weights, random_weights
 from morl_baselines_torch.evaluation import device_front_metrics
 from morl_baselines_torch.ops.pareto_kernel import (
+    COL_TILE,
+    MAX_CHUNK_TILES,
+    SINGLE_BLOCK_MAX_N,
+    WARPS_PER_BLOCK,
+    nd_launch_plan,
     non_dominated_mask_auto,
     non_dominated_mask_cuda,
     non_dominated_mask_plain,
+    rows_per_thread,
 )
 from morl_baselines_torch.utils import MetricLogger
 from morl_baselines_torch.utils import schedules as tsched
@@ -72,6 +78,13 @@ def test_nd_mask_parity(n, d, grid, keep_duplicates):
     exactly with the JAX mask and the Pallas kernel (interpret mode): ragged
     N, invalid rows, planted duplicates, coarse grids full of ties."""
     pts, valid = _points(n + d, n, d, grid=grid)
+    ref = _check_nd_mask(pts, valid, keep_duplicates)
+    assert ref.sum() > 0
+
+
+def _check_nd_mask(pts, valid, keep_duplicates):
+    """Assert the Pallas kernel (interpret mode), the port's (N, N) mask and the
+    row-blocked plain version all equal the JAX mask; return the JAX mask."""
     ref = np.asarray(j_nd_mask(jnp.asarray(pts), jnp.asarray(valid), keep_duplicates=keep_duplicates))
     pallas = np.asarray(
         non_dominated_mask_pallas(jnp.asarray(pts), jnp.asarray(valid), keep_duplicates=keep_duplicates, interpret=True)
@@ -81,7 +94,116 @@ def test_nd_mask_parity(n, d, grid, keep_duplicates):
     np.testing.assert_array_equal(non_dominated_mask(tp, tv, keep_duplicates).numpy(), ref)
     for block_rows in (7, 128, 1024):
         np.testing.assert_array_equal(non_dominated_mask_plain(tp, tv, keep_duplicates, block_rows).numpy(), ref)
-    assert ref.sum() > 0
+    return ref
+
+
+def _sphere(rng, n, d):
+    """Points on the positive orthant of the unit sphere: mutually non-dominated."""
+    p = np.abs(rng.normal(size=(n, d))).astype(np.float32)
+    return p / np.linalg.norm(p, axis=1, keepdims=True)
+
+
+def _hard_points(case, seed=11):
+    """Inputs the kernel finds hardest: no early exit, ties everywhere, sorted
+    orders, extreme d, infinities, N beside a multiple of the tile (32 columns,
+    128 rows) and of the column chunk."""
+    rng = np.random.default_rng(seed)
+    if case == "front":
+        return _sphere(rng, 300, 3), np.ones(300, dtype=bool)
+    if case == "archive_add":  # a full archive of 150 front points takes 150 candidates
+        front, cand = _sphere(rng, 150, 3), _sphere(rng, 150, 3)
+        cand[75:] *= rng.uniform(0.9, 0.999, size=(75, 1)).astype(np.float32)
+        cand[rng.integers(0, 150, size=4)] = front[rng.integers(0, 150, size=4)]
+        return np.concatenate([front, cand]), np.ones(300, dtype=bool)
+    if case == "all_equal":
+        return np.full((200, 3), 0.5, dtype=np.float32), rng.uniform(size=200) > 0.3
+    if case in ("sorted_ascending", "sorted_descending"):
+        pts, valid = _points(seed, 300, 3)
+        order = np.argsort(pts[:, 0], kind="stable")
+        return pts[order if case == "sorted_ascending" else order[::-1]].copy(), valid
+    if case == "d1":
+        return rng.integers(0, 20, size=(300, 1)).astype(np.float32), rng.uniform(size=300) > 0.2
+    if case == "d16":
+        return _points(seed, 200, 16)
+    if case == "inf":  # +-inf coordinates on valid rows, all -inf rows, duplicated inf rows
+        pts, valid = _points(seed, 200, 3, grid=True)
+        pts[rng.uniform(size=pts.shape) < 0.1] = -np.inf
+        pts[rng.uniform(size=pts.shape) < 0.05] = np.inf
+        pts[:3] = -np.inf
+        pts[150:160] = pts[rng.integers(0, 150, size=10)]
+        valid[:3] = True
+        return pts, valid
+    n = int(case.split("=")[1])  # "n=<N>"
+    return _points(seed + n, n, 3)
+
+
+@pytest.mark.parametrize("keep_duplicates", [True, False])
+@pytest.mark.parametrize(
+    "case",
+    ["front", "archive_add", "all_equal", "sorted_ascending", "sorted_descending", "d1", "d16", "inf"]
+    + [f"n={n}" for n in (31, 33, 127, 129, 255, 257)],
+)
+def test_nd_mask_parity_hard_inputs(case, keep_duplicates):
+    """The same four-way agreement on the inputs that stress the kernel's
+    design: full scans, ties, ordered inputs, d at both ends, infinities, and
+    N one off a multiple of the tile and of the single-block limit (256)."""
+    pts, valid = _hard_points(case)
+    ref = _check_nd_mask(pts, valid, keep_duplicates)
+    if case == "all_equal":  # every valid row ties every other: all kept, or only the first
+        assert ref.sum() == (valid.sum() if keep_duplicates else 1)
+    if case == "front":
+        assert ref.all()
+
+
+@pytest.mark.parametrize("d", [1, 3, 16])
+def test_nd_kernel_fast_path_identity(d):
+    """The identity the kernel's fast path rests on (csrc/pareto_nd.cu,
+    scan_tile_fast), in float32 numpy: for finite points with -0 read as +0,
+    x = OR_k bits(v_k - r_k) gives  x >= 0 <=> v >= r  and  x > 0 <=> v
+    dominates r.  Subnormals, signed zeros and overflowing differences too."""
+    rng = np.random.default_rng(d)
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 3e-39, -3e-39, 1.0, -1.0, 3.4e38, -3.4e38, 0.99999994], np.float32)
+    pts = np.where(rng.uniform(size=(96, d)) < 0.5, rng.choice(special, size=(96, d)), rng.normal(size=(96, d)))
+    pts = pts.astype(np.float32)
+    v, r = pts[:, None, :] + np.float32(0), pts[rng.permutation(96)][None, :, :] + np.float32(0)
+    with np.errstate(over="ignore"):
+        x = np.bitwise_or.reduce((v - r).astype(np.float32).view(np.int32), axis=-1)
+    ge = np.all(v >= r, axis=-1)
+    np.testing.assert_array_equal(x >= 0, ge)
+    np.testing.assert_array_equal(x > 0, ge & np.any(v > r, axis=-1))
+
+
+def _covered(plan):
+    """How many work items the kernel's index math (csrc/pareto_nd.cu:
+    nd_mask_kernel) gives each (row tile, column tile) pair under ``plan``."""
+    g = np.arange(plan.blocks * plan.warps_per_block)
+    g = g[g < plan.row_tiles * plan.n_chunks]
+    chunk, rt = g // plan.row_tiles, g % plan.row_tiles
+    per_chunk = np.zeros((plan.row_tiles, plan.n_chunks), dtype=np.int64)
+    np.add.at(per_chunk, (rt, chunk), 1)
+    tile_chunk = np.arange(plan.col_tiles) // plan.chunk_tiles  # the chunk whose range holds each tile
+    assert tile_chunk.max(initial=0) < max(plan.n_chunks, 1)
+    return per_chunk[:, tile_chunk]
+
+
+@pytest.mark.parametrize("n", [1, 96, 127, 128, 129, 8192, 131072])
+def test_nd_launch_plan_covers_every_pair_once(n):
+    for d in (1, 3, 8, 9, 16):
+        for sm_count in (1, 8, 66, 132, 264):
+            plan = nd_launch_plan(n, d, sm_count)
+            assert plan.row_tile == 32 * rows_per_thread(d)
+            assert (plan.row_tiles - 1) * plan.row_tile < n <= plan.row_tiles * plan.row_tile
+            assert (plan.col_tiles - 1) * COL_TILE < n <= plan.col_tiles * COL_TILE
+            assert (plan.n_chunks - 1) * plan.chunk_tiles < plan.col_tiles <= plan.n_chunks * plan.chunk_tiles
+            assert plan.chunk_tiles <= MAX_CHUNK_TILES or plan.n_chunks == 1
+            assert 1 <= plan.warps_per_block <= WARPS_PER_BLOCK
+            items = plan.row_tiles * plan.n_chunks
+            assert plan.blocks * plan.warps_per_block - plan.warps_per_block < items <= plan.blocks * plan.warps_per_block
+            # one block for small N (no scratch); else scratch for a flag per row and a counter per row tile
+            assert (plan.blocks == 1 and plan.scratch_ints == 0) if n <= SINGLE_BLOCK_MAX_N else plan.n_chunks > 1
+            if plan.n_chunks > 1:
+                assert plan.scratch_ints == plan.row_tiles * plan.row_tile + plan.row_tiles
+            np.testing.assert_array_equal(_covered(plan), 1)
 
 
 def test_nd_mask_auto_on_cpu_takes_the_plain_path():
@@ -101,8 +223,15 @@ def test_nd_mask_cuda_kernel_matches_plain():
     """Runs on a machine with an NVIDIA card (the kernel has no CPU mode)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel is compiled with nvcc and runs only on the card")
-    for seed, (n, d, grid) in enumerate([(37, 3, False), (1000, 3, True), (5000, 8, False), (300, 16, False)]):
-        pts, valid = _points(seed, n, d, grid=grid)
+    inputs = [_points(seed, n, d, grid=grid) for seed, (n, d, grid) in enumerate([(37, 3, False), (1000, 3, True), (5000, 8, False), (300, 16, False)])]
+    # the single-block and the chunked launch on the hardest inputs: no early exit, near-dominated candidates
+    inputs += [_hard_points(case) for case in ("front", "archive_add", "inf", "d1", "n=257")]
+    rng = np.random.default_rng(5)
+    front, cand = _sphere(rng, 3000, 3), _sphere(rng, 3000, 3)
+    cand[1500:] *= rng.uniform(0.9, 0.999, size=(1500, 1)).astype(np.float32)
+    cand[rng.integers(0, 3000, size=60)] = front[rng.integers(0, 3000, size=60)]
+    inputs += [(np.concatenate([front, cand]), np.ones(6000, dtype=bool)), (_sphere(rng, 5000, 3), np.ones(5000, dtype=bool))]
+    for pts, valid in inputs:
         tp, tv = torch.as_tensor(pts, device="cuda"), torch.as_tensor(valid, device="cuda")
         for keep in (True, False):
             got = non_dominated_mask_cuda(tp, tv, keep)
