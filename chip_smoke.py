@@ -14,7 +14,14 @@ and checks the kept set against the plain path.  Then drives the main path —
 Envelope Q-learning on minecart at the accelerator config of
 ``bench.py::bench_envelope_minecart`` (32768 envs, (256,)*4 Q-net) — through
 ``train_segment`` and ``Envelope.train`` and scores the evaluated front on the
-card, which runs the kernel.  Every phase raises on a mismatch; the
+card, which runs the kernel.  Then the GPI paths on minecart: GPI-LS at the
+accelerator config of ``bench.py::bench_gpils_minecart`` (4096 envs, a
+16-weight support, bf16 GEMMs in the action forward, 2 critics of (256,)*4)
+through ``train_segment`` and ``GPILS.train``, and GPI-PD through
+``GPIPD.train`` (PER with envelope-target priorities, Dyna with the default
+5-member dynamics ensemble fit to convergence); each front is scored on the
+card.  Every path is driven with the kernel's launch count set to 0 just
+before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
 second-to-last line is a JSON record of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -22,6 +29,7 @@ second-to-last line is a JSON record of the kernels, the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -32,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from morl_baselines_torch.agents import Envelope, EnvelopeConfig
+from morl_baselines_torch.agents import GPILS, GPIPD, Envelope, EnvelopeConfig, GPILSConfig, GPIPDConfig
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import make
 from morl_baselines_torch.evaluation import device_front_metrics
@@ -54,6 +62,22 @@ CONFIG = EnvelopeConfig(
     num_sample_w=4,
 )
 REF_POINT = np.array([0.0, 0.0, -200.0])
+
+# bench.py::bench_gpils_minecart on an accelerator; (256,)*4, 2 critics, LayerNorm and dropout by default
+GPILS_ENVS = 4096
+GPILS_CONFIG = GPILSConfig(
+    num_envs=GPILS_ENVS,
+    buffer_size=max(4 * GPILS_ENVS, 16384),
+    batch_size=128,
+    learning_starts=GPILS_ENVS,
+    gradient_updates=10,
+    max_support=16,
+    bf16_act=True,
+)
+# the same Q-nets with PER, envelope-target priorities and Dyna (default ensemble: 5 members of (200,)*4);
+# at 4 iterations per outer iteration the second one recomputes the priorities, fits and rolls out
+GPIPD_CONFIG = GPIPDConfig(**{**dataclasses.asdict(GPILS_CONFIG), "per": True, "gpi_pd": True, "dyna": True})
+GPI_STEPS_PER_ITER = 4 * GPILS_ENVS
 
 
 def log(msg: str) -> None:
@@ -285,7 +309,7 @@ def phase_train_segment(smi: str) -> None:
         raise AssertionError(f"global_step {state.global_step} != {steps}")
     if state.buffer.size != min(steps, CONFIG.buffer_size):
         raise AssertionError(f"buffer size {state.buffer.size}")
-    if not all(bool(torch.isfinite(p).all()) for p in state.ts.net.parameters()):
+    if not _params_finite(state.ts.net):
         raise AssertionError("non-finite Q-net params")
     if not math.isfinite(float(state.loss)):
         raise AssertionError(f"non-finite loss {float(state.loss)}")
@@ -294,17 +318,17 @@ def phase_train_segment(smi: str) -> None:
         f"{iters} iters in {dt:.3f} s = {iters * NUM_ENVS / dt:.0f} env-steps/s, "
         f"{1e3 * dt / iters:.2f} ms/iter, loss {float(state.loss):.4g} [{smi}]"
     )
-    profile_window(agent, state)
+    profile_window(lambda: agent.train_segment(state, 3), "3 iters")
 
 
-def profile_window(agent: Envelope, state) -> None:
-    """Device busy share and the costliest kernels over 3 iterations."""
+def profile_window(fn, what: str) -> None:
+    """Device busy share and the costliest kernels over one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        agent.train_segment(state, 3)
+        fn()
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     # kernels only: a record_function range (Adam's step) also shows on the device timeline
@@ -319,7 +343,7 @@ def profile_window(agent: Envelope, state) -> None:
         log("[profile] no device time in the trace: busy share not measured")
         return
     n_launch = sum(e.count for e in events)
-    log(f"[profile] 3 iters: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+    log(f"[profile] {what}: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch} kernel launches")
     for e in sorted(events, key=_device_us, reverse=True)[:8]:
         log(f"[profile]   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -346,7 +370,13 @@ def phase_train_and_score() -> None:
     host = agent._last_metrics
     log(f"[train] Envelope.train {state.global_step} steps + 1 evaluation (32 weights x 1000 steps) "
         f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()))
-    front_np = agent._last_front
+    score_on_card(agent._last_front, host)
+
+
+def score_on_card(front_np: np.ndarray, host: dict) -> int:
+    """Score a (32, 3) front on the card with ``device_front_metrics`` and
+    ``DeviceParetoFront.add``, hold the device cardinality, EUM and archive
+    against the host's, and return the kernel's launches."""
     if front_np.shape != (32, 3) or not np.isfinite(front_np).all():
         raise AssertionError(f"bad front {front_np.shape}")
 
@@ -371,6 +401,129 @@ def phase_train_and_score() -> None:
         raise AssertionError(f"device archive {got} != host front {distinct}")
     log(f"[score] device eval/cardinality={card:g} eval/eum={eum:.6g} (host {host['eval/eum']:.6g}); "
         f"archive holds {len(got)} points; kernel launched {launched} times")
+    return launched
+
+
+def _params_finite(net: torch.nn.Module) -> bool:
+    return all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+def phase_gpils_segment(smi: str) -> None:
+    """GPI-LS ``train_segment`` at bench.py's accelerator config: 2 warm-up
+    iterations, then 50 timed; then the action forward alone (4096 envs x
+    16 support rows through 2 critics) in bf16 and float32."""
+    agent = GPILS(make("minecart-v0"), GPILS_CONFIG)
+    state = agent.init_state()
+    agent.set_weight_support(state, equally_spaced_weights(3, 16))
+    agent.train_segment(state, 2)
+    torch.cuda.synchronize()
+    iters = 50
+    t0 = time.perf_counter()
+    agent.train_segment(state, iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = (iters + 2) * GPILS_ENVS
+    if state.global_step != steps or state.iter_count != iters + 2 or state.support_size != 16:
+        raise AssertionError(f"global_step {state.global_step} != {steps}, or support {state.support_size} != 16")
+    if state.buffer.size != min(steps, GPILS_CONFIG.buffer_size):
+        raise AssertionError(f"buffer size {state.buffer.size}")
+    if not _params_finite(state.ts.net) or not math.isfinite(float(state.loss)):
+        raise AssertionError(f"non-finite params or loss {float(state.loss)}")
+    log(
+        f"[gpils_segment] minecart num_envs={GPILS_ENVS} hidden={GPILS_CONFIG.hidden} n_critics=2 support=16 "
+        f"bf16_act gradient_updates=10: {iters} iters in {dt:.3f} s = {iters * GPILS_ENVS / dt:.0f} env-steps/s, "
+        f"{1e3 * dt / iters:.2f} ms/iter, loss {float(state.loss):.4g} [{smi}]"
+    )
+    profile_window(lambda: agent.train_segment(state, 3), "gpils 3 iters")
+
+    net, support = state.ts.net, state.valid_support
+    act = lambda: agent._gpi_actions(net, state.obs, state.task_w, support)  # noqa: E731
+    bf16_ms = time_ms(act)
+    profile_window(act, "gpils act forward bf16, 65536 rows")
+    agent.act_dtype = None
+    f32_ms = time_ms(act)
+    agent.act_dtype = torch.bfloat16
+    log(f"[gpils_act] GPI action forward over {GPILS_ENVS} x 16 rows, 2 critics: bf16 {bf16_ms:.4f} ms, "
+        f"float32 {f32_ms:.4f} ms [{smi}]")
+
+
+class PhaseTimer:
+    """Wraps methods of an object to time each call on the card (synchronised)."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+
+    def wrap(self, obj, name: str, keep=lambda out: None) -> None:
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.setdefault(name, []).append((time.perf_counter() - t0, keep(out)))
+            return out
+
+        setattr(obj, name, timed)
+
+
+def phase_gpils_train(smi: str) -> int:
+    """``GPILS.train``: 2 outer iterations, the front of 32 weights scored on the card."""
+    env = make("minecart-v0")
+    agent = GPILS(env, GPILS_CONFIG)
+    t0 = time.perf_counter()
+    state = agent.train(
+        total_timesteps=2 * GPI_STEPS_PER_ITER,
+        ref_point=REF_POINT,
+        known_pareto_front=env.pareto_front(0.98),
+        num_eval_weights_for_front=32,
+        timesteps_per_iter=GPI_STEPS_PER_ITER,
+    )
+    torch.cuda.synchronize()
+    host = agent._last_metrics
+    if not agent.ccs or state.global_step != 2 * GPI_STEPS_PER_ITER:
+        raise AssertionError(f"CCS {agent.ccs}, global_step {state.global_step}")
+    log(f"[gpils_train] GPILS.train {state.global_step} steps, 2 outer iterations, CCS of {len(agent.ccs)}, "
+        f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host)
+
+
+def phase_gpipd_train(smi: str) -> int:
+    """``GPIPD.train``: 2 outer iterations; the second recomputes the
+    priorities, fits the dynamics to convergence and rolls out once."""
+    env = make("minecart-v0")
+    agent = GPIPD(env, GPIPD_CONFIG)
+    timer = PhaseTimer()
+    for name in ("fit_dynamics", "rollout_dynamics", "recompute_priorities"):
+        timer.wrap(agent, name)
+    timer.wrap(agent.dynamics, "fit_converged", keep=lambda out: (float(out[1]), out[2]))
+    t0 = time.perf_counter()
+    state = agent.train(
+        total_timesteps=2 * GPI_STEPS_PER_ITER,
+        ref_point=REF_POINT,
+        known_pareto_front=env.pareto_front(0.98),
+        num_eval_weights_for_front=32,
+        timesteps_per_iter=GPI_STEPS_PER_ITER,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("fit_dynamics", "rollout_dynamics", "recompute_priorities", "fit_converged"):
+        if not timer.calls.get(name):
+            raise AssertionError(f"GPIPD.train never ran {name}")
+    base, host = state.base, agent._last_metrics
+    buf, dyna = base.buffer, state.dyna_buffer
+    prios = buf.priorities[: buf.size]
+    if dyna.size == 0 or not bool(torch.isfinite(prios).all()) or not bool((prios > 0).all()):
+        raise AssertionError(f"imagined rows {dyna.size}, priorities finite and > 0: {bool(torch.isfinite(prios).all())}, {bool((prios > 0).all())}")
+    if not _params_finite(base.ts.net) or not _params_finite(state.ens.net):
+        raise AssertionError("non-finite Q-net or dynamics params")
+    fits = ", ".join(f"{1e3 * dt:.1f} ms ({epochs} epochs, holdout MSE {mse:.4g})" for dt, (mse, epochs) in timer.calls["fit_converged"])
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.1f} ms" for dt, _ in timer.calls[name])
+                     for name in ("recompute_priorities", "fit_dynamics", "rollout_dynamics"))
+    log(f"[gpipd_train] GPIPD.train {base.global_step} steps, 2 outer iterations in {wall:.2f} s; {each}; "
+        f"fit_converged {fits}; imagined buffer {dyna.size} rows; real buffer {buf.size} rows, priorities in "
+        f"[{float(prios.min()):.4g}, {float(prios.max()):.4g}]; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host)
 
 
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
@@ -421,12 +574,20 @@ def main() -> int:
     timed = phase_kernel_vs_plain(smi)
     archive = phase_archive_add(smi)
 
-    non_dominated_mask_cuda.launches = 0  # count the main path's launches only
-    phase_train_segment(smi)
-    phase_train_and_score()
-    launches = non_dominated_mask_cuda.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched the pareto_nd kernel")
+    # each path's launches, counted from 0 just before it and read just after
+    paths = {
+        "envelope": lambda: (phase_train_segment(smi), phase_train_and_score()),
+        "gpils": lambda: (phase_gpils_segment(smi), phase_gpils_train(smi)),
+        "gpipd": lambda: phase_gpipd_train(smi),
+    }
+    launches_by_path = {}
+    for name, drive in paths.items():
+        non_dominated_mask_cuda.launches = 0
+        drive()
+        launches_by_path[name] = non_dominated_mask_cuda.launches
+        if launches_by_path[name] == 0:
+            raise AssertionError(f"the {name} path never launched the pareto_nd kernel")
+    launches = sum(launches_by_path.values())
 
     main_shape = next(r for r in timed if r["n"] == 96 and not r["keep_duplicates"])
     record = {
@@ -435,6 +596,7 @@ def main() -> int:
         "source": "morl_baselines_torch/csrc/pareto_nd.cu",
         "replaces": "morl_baselines_tpu/ops/pareto_kernel.py:33",
         "launches": launches,
+        "launches_by_path": launches_by_path,
         "max_abs_err": 0.0,  # every comparison above is bitwise
         "ms": main_shape["ms"],
         "device_ms": main_shape["device_ms"],  # the kernel's own time, from the profiler; ms is host-bound here
@@ -442,7 +604,7 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a Pareto mask
-        "at": "N=96 d=3 keep_duplicates=False (DeviceParetoFront.add on the main path)",
+        "at": "N=96 d=3 keep_duplicates=False (DeviceParetoFront.add on every path's scoring step)",
         "sizes": timed,
         "archive_add": archive,
     }

@@ -20,9 +20,8 @@ device.  Randomness comes from one ``torch.Generator`` on the device.
 
 The Q-net runs in full float32: ``resolve_device`` turns TF32 off on CUDA.
 The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
-the clip is written out (optax scales by max_norm/‖g‖ only when ‖g‖ >=
-max_norm, with no epsilon, unlike ``clip_grad_norm_``), then
-``torch.optim.Adam`` with optax's betas and eps.
+optax's clip (``clip_grad_global_norm_``), then ``torch.optim.Adam`` with
+optax's betas and eps.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from ..core.weights import equally_spaced_weights, random_weights
 from ..envs.base import MOEnv
 from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import evaluate_front, multi_policy_metrics
-from ..models.networks import EnvelopeQNet, TrainState, polyak_update
+from ..models.networks import EnvelopeQNet, TrainState, clip_grad_global_norm_, polyak_update
 from ..replay.buffer import ReplayBuffer, Transition
 from ..replay.prioritized import PrioritizedReplayBuffer
 from ..utils.schedules import linearly_decaying_value
@@ -186,13 +185,7 @@ class Envelope(MOAgentBase):
         loss, td_scal, _ = self._loss(ts, batch, sampled_w, homotopy_lambda)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        # optax.clip_by_global_norm: scale by max_norm/‖g‖ when ‖g‖ >= max_norm
-        with torch.no_grad():
-            grads = [p.grad for p in params]
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            scale = torch.where(norm < self.cfg.max_grad_norm, 1.0, self.cfg.max_grad_norm / norm)
-            for g in grads:
-                g.mul_(scale)
+        clip_grad_global_norm_(params, self.cfg.max_grad_norm)
         ts.optimizer.step()
         return loss.detach(), td_scal[: batch.obs.shape[0]].detach()
 

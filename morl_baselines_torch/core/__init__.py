@@ -12,7 +12,7 @@ from .indicators import (
     sparsity,
 )
 from .archive import DeviceParetoFront, ParetoArchive
-from .weights import equally_spaced_weights, random_weights
+from .weights import equally_spaced_weights, extrema_weights, random_weights
 
 __all__ = [
     "DeviceParetoFront",
@@ -20,6 +20,7 @@ __all__ = [
     "cardinality",
     "equally_spaced_weights",
     "expected_utility",
+    "extrema_weights",
     "filter_pareto_dominated",
     "get_non_dominated_inds",
     "hypervolume",

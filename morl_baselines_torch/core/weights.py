@@ -113,3 +113,8 @@ def equally_spaced_weights(dim: int, n: int, seed: int = 42) -> np.ndarray:
             d2 = np.minimum(d2, np.sum((pts - pts[nxt]) ** 2, axis=-1))
         pts = pts[np.sort(np.asarray(chosen))]
     return _riesz_energy_minimize(pts, s=float(dim * dim), iters=3000)
+
+
+def extrema_weights(dim: int) -> np.ndarray:
+    """The dim one-hot corner weights (reference weights.py:52-58)."""
+    return np.eye(dim, dtype=np.float64)

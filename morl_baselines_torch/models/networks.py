@@ -1,20 +1,32 @@
 """Network building blocks for MORL on torch.
 
-PyTorch port of the parts of ``morl_baselines_tpu/models/networks.py`` that
-Envelope uses (reference common/networks.py:10-157, envelope.py:33-77):
+PyTorch port of ``morl_baselines_tpu/models/networks.py`` (reference
+common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 
-- ``MLP``: ReLU trunk with an optional linear output layer.
+- ``MLP``: ReLU trunk with an optional linear output layer, dropout and
+  LayerNorm options, and an optional ensemble axis (``members``).
+- ``EnsembleDense``: ``members`` Dense layers stacked on a leading axis and
+  computed as one batched GEMM (``torch.baddbmm``), in place of flax's
+  ``nn.vmap`` over unshared params.
 - ``EnvelopeQNet``: Q(s, w) in R^{A x d} from the concatenation obs||w
   (flat observations).
+- ``WeightConditionedQNet``: the psi-network Q(s, w) in R^{A x d} from the
+  product of an obs embedding and a weight embedding; ``members`` stacks
+  critics of it (the JAX package's ``ensemble``).
 - ``TrainState``: online net, target net and optimizer together, in place of
   flax's ``TrainState`` with ``target_params``.
-- ``polyak_update``: soft target update (optax.incremental_update).
+- ``polyak_update``, ``clip_grad_global_norm_``, ``huber``.
 - ``load_flax_params``: carry a flax parameter tree into a port module.
 
 Linear layers are initialized as flax ``nn.Dense`` is: lecun-normal weights
 (a normal truncated at two standard deviations, rescaled so the variance is
 1/fan_in) and zero biases.  Torch's own ``Linear`` init would change the
 learning curves.
+
+A forward given ``dtype`` (bfloat16) computes as a flax module built with
+that ``dtype`` does: each Dense casts its input and params to it, LayerNorm
+computes in float32, and the trunk returns float32.  The casts are written
+out (no autocast), so a CPU run makes the same ones.
 """
 
 from __future__ import annotations
@@ -24,25 +36,84 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # std of a standard normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
+# flax nn.LayerNorm's epsilon (torch's default is 1e-5)
+_LN_EPS = 1e-6
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator | None) -> None:
+    std = float(np.sqrt(1.0 / fan_in)) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
 def dense(in_features: int, out_features: int, gen: torch.Generator | None = None) -> nn.Linear:
     """``nn.Linear`` initialized like flax ``nn.Dense`` (lecun_normal, zero bias)."""
     layer = nn.Linear(in_features, out_features)
-    std = float(np.sqrt(1.0 / in_features)) / _TRUNC_STD
     with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        _lecun_normal_(layer.weight, in_features, gen)
         layer.bias.zero_()
     return layer
 
 
+class EnsembleDense(nn.Module):
+    """``members`` flax Dense layers with unshared params, one batched GEMM.
+
+    ``weight`` is (members, in, out), the layout of a flax kernel under
+    ``nn.vmap``; ``bias`` is (members, out).  The input is (B, in), shared by
+    every member, or (members, B, in); the output is (members, B, out).
+    """
+
+    def __init__(self, members: int, in_features: int, out_features: int, gen: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(members, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(members, out_features))
+        with torch.no_grad():
+            _lecun_normal_(self.weight, in_features, gen)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if dtype is not None:
+            x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        if x.dim() == 2:
+            x = x.expand(w.shape[0], *x.shape)
+        return torch.baddbmm(b[:, None, :], x, w)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: epsilon 1e-6, statistics and
+    output in float32; ``members`` gives scale and bias a leading ensemble axis."""
+
+    def __init__(self, features: int, members: int | None = None):
+        super().__init__()
+        shape = (features,) if members is None else (members, 1, features)
+        self.scale = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], eps=_LN_EPS)
+        return y * self.scale + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept by 1/(1 - rate).
+    The mask is drawn from ``gen``, so every element (every critic) draws its own."""
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class MLP(nn.Module):
     """ReLU MLP trunk (reference networks.py:10-48); output_dim None returns
-    the last hidden features."""
+    the last hidden features.
+
+    Each hidden layer is Dense -> Dropout -> LayerNorm -> ReLU, the last two
+    as the options ask.  Dropout runs only when the forward is given a
+    generator (flax ``deterministic=False``).  With ``members`` every layer
+    carries a leading ensemble axis and the output is (members, B, ...).
+    """
 
     def __init__(
         self,
@@ -50,18 +121,38 @@ class MLP(nn.Module):
         hidden: Sequence[int] = (256, 256),
         output_dim: int | None = None,
         gen: torch.Generator | None = None,
+        dropout_rate: float = 0.0,
+        use_layernorm: bool = False,
+        members: int | None = None,
     ):
         super().__init__()
         sizes = [in_features, *hidden] + ([output_dim] if output_dim is not None else [])
-        self.layers = nn.ModuleList(dense(a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
+        if members is None:
+            self.layers = nn.ModuleList(dense(a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
+        else:
+            self.layers = nn.ModuleList(EnsembleDense(members, a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.norms = nn.ModuleList(LayerNorm(h, members) for h in hidden) if use_layernorm else None
         self.n_hidden = len(hidden)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, dropout_gen: torch.Generator | None = None, dtype: torch.dtype | None = None
+    ) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = layer(x) if dtype is None else layer(x, dtype)
             if i < self.n_hidden:
+                if self.dropout_rate > 0 and dropout_gen is not None:
+                    x = dropout(x, self.dropout_rate, dropout_gen)
+                if self.norms is not None:
+                    x = self.norms[i](x)
                 x = torch.relu(x)
-        return x
+        return x if dtype is None else x.float()
+
+    def flax_layout(self) -> dict:
+        out = {f"Dense_{i}": layer for i, layer in enumerate(self.layers)}
+        if self.norms is not None:
+            out.update({f"LayerNorm_{i}": norm for i, norm in enumerate(self.norms)})
+        return out
 
 
 class EnvelopeQNet(nn.Module):
@@ -83,6 +174,57 @@ class EnvelopeQNet(nn.Module):
     def forward(self, obs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x = self.mlp(torch.cat([obs, w], dim=-1))
         return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp}
+
+
+class WeightConditionedQNet(nn.Module):
+    """Q(s, w) -> (A, d): state-feature x weight-feature product psi-network
+    (reference gpi_ls_jax.py:33-93 / gpi_pd.py QNet:41-76).
+
+    The obs and the weight each go through Dense(hidden[0]) -> ReLU; their
+    product goes through the head ``hidden[1:]`` (with the dropout and
+    LayerNorm options) and Dense(A·d).  With ``members`` the critics are
+    stacked and the output is (members, B, A, d).  ``dtype`` (bfloat16)
+    casts as the JAX package's ``dtype`` field does; Q-values come back in
+    float32.
+    """
+
+    def __init__(
+        self,
+        obs_dim: int,
+        num_actions: int,
+        reward_dim: int,
+        hidden: Sequence[int] = (256, 256, 256, 256),
+        dropout_rate: float = 0.0,
+        use_layernorm: bool = False,
+        members: int | None = None,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.num_actions = num_actions
+        self.reward_dim = reward_dim
+        h = hidden[0]
+        self.obs_embed = MLP(obs_dim, (h,), gen=gen, members=members)
+        self.w_embed = MLP(reward_dim, (h,), gen=gen, members=members)
+        self.head = MLP(
+            h, hidden[1:], num_actions * reward_dim, gen, dropout_rate, use_layernorm, members=members
+        )
+
+    def forward(
+        self,
+        obs: torch.Tensor,
+        w: torch.Tensor,
+        dropout_gen: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
+    ) -> torch.Tensor:
+        x = self.obs_embed(obs, dtype=dtype) * self.w_embed(w, dtype=dtype)
+        x = self.head(x, dropout_gen, dtype)
+        return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.obs_embed, "MLP_1": self.w_embed, "MLP_2": self.head}
 
 
 @dataclass
@@ -106,27 +248,87 @@ def polyak_update(net: nn.Module, target_net: nn.Module, tau: float) -> None:
 
 
 @torch.no_grad()
+def clip_grad_global_norm_(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` on the ``.grad`` of ``params``, in place:
+    scale by max_norm/‖g‖ when ‖g‖ >= max_norm, with no epsilon (unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    grads = [p.grad for p in params]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def huber(x: torch.Tensor, min_priority: float = 0.01) -> torch.Tensor:
+    """Elementwise huber with the reference's threshold semantics (networks.py:90-100)."""
+    ax = torch.abs(x)
+    return torch.where(ax < min_priority, 0.5 * x**2, min_priority * ax)
+
+
+@torch.no_grad()
 def load_flax_params(module: nn.Module, flax_params) -> nn.Module:
     """Copy a flax parameter tree of numpy arrays into ``module`` in place.
 
-    ``flax_params`` is what the JAX package's ``MLP`` or ``EnvelopeQNet``
-    ``init`` returns (with or without the top-level ``"params"``), with every
-    leaf as a numpy array.  A flax ``Dense`` kernel is (in, out); a torch
-    ``Linear.weight`` is (out, in), so kernels are transposed.
+    ``flax_params`` is what the matching JAX module's ``init`` returns (with
+    or without the top-level ``"params"``), with every leaf as a numpy array:
+    ``MLP``, ``EnvelopeQNet``, an ``ensemble`` of ``WeightConditionedQNet``
+    (``members`` critics),
+    or the dynamics' ``GaussianMLP`` members stacked by ``jax.vmap``.  Each
+    port module names its flax children in ``flax_layout()``.  A flax
+    ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in), so
+    those kernels are transposed, while ``EnsembleDense`` keeps flax's layout.
     """
-    tree = flax_params.get("params", flax_params)
-    mlp = module
-    if isinstance(module, EnvelopeQNet):
-        mlp, tree = module.mlp, tree["MLP_0"]
-    if not isinstance(mlp, MLP):
-        raise TypeError(f"no flax layout known for {type(module).__name__}")
-    if len(tree) != len(mlp.layers):
-        raise ValueError(f"flax tree has {len(tree)} Dense layers, module has {len(mlp.layers)}")
-    for i, layer in enumerate(mlp.layers):
-        dense_p = tree[f"Dense_{i}"]
-        kernel = torch.as_tensor(np.array(dense_p["kernel"]), dtype=layer.weight.dtype)
-        if kernel.T.shape != layer.weight.shape:
-            raise ValueError(f"Dense_{i}: kernel {tuple(kernel.shape)} does not fit weight {tuple(layer.weight.shape)}")
-        layer.weight.copy_(kernel.T)
-        layer.bias.copy_(torch.as_tensor(np.array(dense_p["bias"]), dtype=layer.bias.dtype))
+    _load(module, flax_params.get("params", flax_params), type(module).__name__)
     return module
+
+
+@torch.no_grad()
+def to_flax_params(module: nn.Module, grads: bool = False) -> dict:
+    """The inverse of ``load_flax_params``: ``module``'s params (or, with
+    ``grads``, their ``.grad``) as a flax-layout tree of numpy arrays, without
+    the top-level ``"params"``."""
+    get = (lambda p: p.grad) if grads else (lambda p: p)
+    np_ = lambda t: get(t).detach().cpu().numpy()  # noqa: E731
+    if isinstance(module, nn.Linear):
+        return {"kernel": np_(module.weight).T, "bias": np_(module.bias)}
+    if isinstance(module, EnsembleDense):
+        return {"kernel": np_(module.weight), "bias": np_(module.bias)}
+    if isinstance(module, LayerNorm):
+        lead = module.scale.shape[:1] if module.scale.dim() == 3 else ()  # (members, 1, h) -> (members, h)
+        return {"scale": np_(module.scale).reshape(*lead, -1), "bias": np_(module.bias).reshape(*lead, -1)}
+    return {
+        name: np_(child) if isinstance(child, nn.Parameter) else to_flax_params(child, grads)
+        for name, child in module.flax_layout().items()
+    }
+
+
+def _copy(dst: torch.Tensor, src, path: str) -> None:
+    src = torch.as_tensor(np.array(src), dtype=dst.dtype)
+    if src.numel() != dst.numel() or src.shape[-1] != dst.shape[-1]:
+        raise ValueError(f"{path}: flax shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(src.reshape(dst.shape))
+
+
+def _load(module, tree, path: str) -> None:
+    if isinstance(module, nn.Linear):
+        _copy(module.weight, np.array(tree["kernel"]).T, f"{path}.kernel")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if isinstance(module, EnsembleDense):
+        _copy(module.weight, tree["kernel"], f"{path}.kernel")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if isinstance(module, LayerNorm):
+        _copy(module.scale, tree["scale"], f"{path}.scale")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if not hasattr(module, "flax_layout"):
+        raise TypeError(f"no flax layout known for {type(module).__name__}")
+    layout = module.flax_layout()
+    if set(tree) != set(layout):
+        raise ValueError(f"{path}: flax tree has {sorted(tree)}, module has {sorted(layout)}")
+    for name, child in layout.items():
+        if isinstance(child, nn.Parameter):
+            _copy(child.data, tree[name], f"{path}.{name}")
+        else:
+            _load(child, tree[name], f"{path}.{name}")

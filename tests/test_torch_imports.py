@@ -15,7 +15,7 @@ import sys
 import pytest
 import torch
 
-from morl_baselines_torch.agents import Envelope, EnvelopeConfig
+from morl_baselines_torch.agents import GPILS, GPIPD, Envelope, EnvelopeConfig, GPILSConfig, GPIPDConfig
 from morl_baselines_torch.core import DeviceParetoFront
 from morl_baselines_torch.envs import make
 
@@ -56,5 +56,13 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
         Envelope(make("minecart-v0"), cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceParetoFront.create(8, 3)
+    gcfg = dict(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,), max_support=4)
+    for cls, config in ((GPILS, GPILSConfig(**gcfg)), (GPIPD, GPIPDConfig(**gcfg))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(make("minecart-v0"), config)
     # asking for the CPU explicitly works
     assert Envelope(make("minecart-v0"), cfg, device="cpu").device.type == "cpu"
+    for cls, config in ((GPILS, GPILSConfig(**gcfg)), (GPIPD, GPIPDConfig(**gcfg))):
+        agent = cls(make("minecart-v0"), config, device="cpu")
+        state = agent.init_state()
+        assert agent.device.type == "cpu" and (state.base if cls is GPIPD else state).obs.device.type == "cpu"
