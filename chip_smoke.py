@@ -20,8 +20,17 @@ accelerator config of ``bench.py::bench_gpils_minecart`` (4096 envs, a
 through ``train_segment`` and ``GPILS.train``, and GPI-PD through
 ``GPIPD.train`` (PER with envelope-target priorities, Dyna with the default
 5-member dynamics ensemble fit to convergence); each front is scored on the
-card.  Every path is driven with the kernel's launch count set to 0 just
-before it and read just after.  Every phase raises on a mismatch; the
+card.  Then the continuous-control slice: ``[planar]`` steps the planar
+hopper and halfcheetah at 2048 envs (ms and kernel launches per control
+step, finite states, passive hoppers settling on the foot); GPI-LS
+continuous at the accelerator config of ``bench.py::bench_gpils_cont_hopper``
+(2048 envs, 2 BatchRenorm/WeightNorm critics of (256, 256), an 8-weight
+support) through ``train_segment`` and ``GPILSContinuous.train``, and
+GPI-PD continuous through ``GPIPDContinuous.train`` (PER, Dyna with the
+default 5-member ensemble fit to convergence, 512 rollout starts of 5
+steps), on ``mo-hopper-jx-v5`` with 500-step episodes; each front is
+scored on the card.  Every path is driven with the kernel's launch count
+set to 0 just before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
 second-to-last line is a JSON record of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -40,7 +49,18 @@ import time
 import numpy as np
 import torch
 
-from morl_baselines_torch.agents import GPILS, GPIPD, Envelope, EnvelopeConfig, GPILSConfig, GPIPDConfig
+from morl_baselines_torch.agents import (
+    GPILS,
+    GPIPD,
+    Envelope,
+    EnvelopeConfig,
+    GPILSConfig,
+    GPILSContinuous,
+    GPILSContinuousConfig,
+    GPIPDConfig,
+    GPIPDContinuous,
+    GPIPDContinuousConfig,
+)
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import make
 from morl_baselines_torch.evaluation import device_front_metrics
@@ -78,6 +98,23 @@ GPILS_CONFIG = GPILSConfig(
 # at 4 iterations per outer iteration the second one recomputes the priorities, fits and rolls out
 GPIPD_CONFIG = GPIPDConfig(**{**dataclasses.asdict(GPILS_CONFIG), "per": True, "gpi_pd": True, "dyna": True})
 GPI_STEPS_PER_ITER = 4 * GPILS_ENVS
+
+# bench.py::bench_gpils_cont_hopper on an accelerator (bench.py:115-123): 2048 envs, buffer 16384,
+# learning_starts 2048, batch 128, 1 update per iteration; 2 critics of (256, 256) with BatchRenorm,
+# WeightNorm, leaky-relu and dropout 0.01 by default
+CONT_ENVS = 2048
+GPILS_CONT_CONFIG = GPILSContinuousConfig(
+    num_envs=CONT_ENVS, buffer_size=max(4 * CONT_ENVS, 16384), learning_starts=CONT_ENVS, gradient_updates=1
+)
+# the same nets with PER and Dyna: the default ensemble (5 members of (200,)*4) fit to convergence,
+# 512 rollout starts of 5 steps (examples/gpi_pd_hopper.py); the second outer iteration fits and rolls out
+GPIPD_CONT_CONFIG = GPIPDContinuousConfig(
+    **{**dataclasses.asdict(GPILS_CONT_CONFIG), "per": True, "dyna": True,
+       "dynamics_rollout_starts": 512, "dynamics_rollout_len": 5}
+)
+CONT_STEPS_PER_ITER = 4 * CONT_ENVS
+HOPPER_REF_POINT = np.array([-100.0, -100.0, -100.0])  # examples/gpi_pd_hopper.py
+HOPPER_EPISODE_STEPS = 500  # examples/gpi_pd_hopper.py; the evaluations run up to this many steps
 
 
 def log(msg: str) -> None:
@@ -321,8 +358,9 @@ def phase_train_segment(smi: str) -> None:
     profile_window(lambda: agent.train_segment(state, 3), "3 iters")
 
 
-def profile_window(fn, what: str) -> None:
-    """Device busy share and the costliest kernels over one call of ``fn``."""
+def profile_window(fn, what: str) -> dict | None:
+    """Device busy share and the costliest kernels over one call of ``fn``;
+    returns {busy_ms, wall_ms, launches}, or None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -341,12 +379,13 @@ def profile_window(fn, what: str) -> None:
     busy_us = sum(_device_us(e) for e in events)
     if busy_us == 0:
         log("[profile] no device time in the trace: busy share not measured")
-        return
+        return None
     n_launch = sum(e.count for e in events)
     log(f"[profile] {what}: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch} kernel launches")
     for e in sorted(events, key=_device_us, reverse=True)[:8]:
         log(f"[profile]   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return dict(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3, launches=n_launch)
 
 
 def _device_us(event) -> float:
@@ -370,13 +409,14 @@ def phase_train_and_score() -> None:
     host = agent._last_metrics
     log(f"[train] Envelope.train {state.global_step} steps + 1 evaluation (32 weights x 1000 steps) "
         f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()))
-    score_on_card(agent._last_front, host)
+    score_on_card(agent._last_front, host, REF_POINT)
 
 
-def score_on_card(front_np: np.ndarray, host: dict) -> int:
-    """Score a (32, 3) front on the card with ``device_front_metrics`` and
-    ``DeviceParetoFront.add``, hold the device cardinality, EUM and archive
-    against the host's, and return the kernel's launches."""
+def score_on_card(front_np: np.ndarray, host: dict, ref_point: np.ndarray) -> int:
+    """Score a (32, 3) front on the card with ``device_front_metrics`` (at the
+    env's ``ref_point``) and ``DeviceParetoFront.add``, hold the device
+    cardinality, EUM and archive against the host's, and return the kernel's
+    launches."""
     if front_np.shape != (32, 3) or not np.isfinite(front_np).all():
         raise AssertionError(f"bad front {front_np.shape}")
 
@@ -384,7 +424,7 @@ def score_on_card(front_np: np.ndarray, host: dict) -> int:
     front = torch.as_tensor(front_np, dtype=torch.float32, device="cuda")
     valid = torch.ones(32, dtype=torch.bool, device="cuda")
     weights = torch.as_tensor(equally_spaced_weights(3, 32), dtype=torch.float32, device="cuda")
-    dev = device_front_metrics(front, valid, torch.as_tensor(REF_POINT, dtype=torch.float32, device="cuda"), weights)
+    dev = device_front_metrics(front, valid, torch.as_tensor(ref_point, dtype=torch.float32, device="cuda"), weights)
     archive = DeviceParetoFront.create(64, 3).add(front)
     torch.cuda.synchronize()
     launched = non_dominated_mask_cuda.launches - before
@@ -485,7 +525,7 @@ def phase_gpils_train(smi: str) -> int:
         raise AssertionError(f"CCS {agent.ccs}, global_step {state.global_step}")
     log(f"[gpils_train] GPILS.train {state.global_step} steps, 2 outer iterations, CCS of {len(agent.ccs)}, "
         f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
-    return score_on_card(agent._last_front, host)
+    return score_on_card(agent._last_front, host, REF_POINT)
 
 
 def phase_gpipd_train(smi: str) -> int:
@@ -523,7 +563,140 @@ def phase_gpipd_train(smi: str) -> int:
     log(f"[gpipd_train] GPIPD.train {base.global_step} steps, 2 outer iterations in {wall:.2f} s; {each}; "
         f"fit_converged {fits}; imagined buffer {dyna.size} rows; real buffer {buf.size} rows, priorities in "
         f"[{float(prios.min()):.4g}, {float(prios.max()):.4g}]; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
-    return score_on_card(agent._last_front, host)
+    return score_on_card(agent._last_front, host, REF_POINT)
+
+
+def phase_planar(smi: str) -> dict:
+    """Both planar envs at the continuous agents' ``CONT_ENVS`` envs: ms per control step by CUDA
+    events and kernel launches per step from a profile window; the states
+    stay finite under 50 steps of random actions, and passive hoppers settle
+    on the foot near z = 1.205 (tests/test_planar.py), fewer than 1% of them
+    tipping past the healthy angle."""
+    out = {}
+    for env_id in ("mo-hopper-jx-v5", "mo-halfcheetah-jx-v5"):
+        env = make(env_id)
+        gen = torch.Generator(env.device).manual_seed(0)
+        state, _ = env.reset(CONT_ENVS, gen)
+        for _ in range(50):
+            state = env.step(state, env.action_space.sample(gen, CONT_ENVS)).state
+        if not (bool(torch.isfinite(state.q).all()) and bool(torch.isfinite(state.qd).all())):
+            raise AssertionError(f"{env_id}: non-finite states after 50 random steps")
+        a = env.action_space.sample(gen, CONT_ENVS)
+        ms = time_ms(lambda: env.step(state, a), warmup=2, runs=5, reps=5)
+        prof = profile_window(lambda: env.step(state, a), f"{env_id} one control step, {CONT_ENVS} envs")
+        launches = prof["launches"] if prof else None
+        log(f"[planar] {env_id} {CONT_ENVS} envs, {env.n_sub} substeps per control step: {ms:.3f} ms per step "
+            f"({1e3 * CONT_ENVS / ms:.0f} env-steps/s), {launches} kernel launches per step [{smi}]")
+        out[env_id] = dict(ms=ms, launches=launches, substeps=env.n_sub)
+    env = make("mo-hopper-jx-v5")
+    state, _ = env.reset(CONT_ENVS, torch.Generator(env.device).manual_seed(1))
+    zero = torch.zeros(CONT_ENVS, 3, device=env.device)
+    terminated = torch.zeros(CONT_ENVS, dtype=torch.bool, device=env.device)
+    for _ in range(80):
+        o = env.step(state, zero)
+        state, terminated = o.state, terminated | o.terminated
+    dz = float((state.q[:, 1] - 1.205).abs().max())
+    n_term = int(terminated.sum())
+    # a few of 2048 tip slowly past |angle| 0.2 by step 80, in the JAX package too (6 of 2048 on the CPU)
+    if n_term > CONT_ENVS // 100 or dz > 0.05:
+        raise AssertionError(f"passive hoppers: {n_term} terminated, max |z - 1.205| = {dz:.4f}")
+    log(f"[planar] {CONT_ENVS} passive hoppers after 80 steps: {n_term} tipped past |angle| 0.2, "
+        f"max |z - 1.205| = {dz:.4f}")
+    return out
+
+
+def phase_gpils_cont_segment(smi: str) -> None:
+    """Continuous GPI-LS ``train_segment`` on the hopper at bench.py's
+    accelerator config: 2 warm-up iterations, then 50 timed, then a profile window."""
+    agent = GPILSContinuous(make("mo-hopper-jx-v5"), GPILS_CONT_CONFIG)
+    state = agent.init_state()
+    agent.set_weight_support(state, equally_spaced_weights(3, 8))
+    agent.train_segment(state, 2)
+    torch.cuda.synchronize()
+    iters = 50
+    t0 = time.perf_counter()
+    agent.train_segment(state, iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = (iters + 2) * CONT_ENVS
+    if state.global_step != steps or state.iter_count != iters + 2 or state.support_size != 8:
+        raise AssertionError(f"global_step {state.global_step} != {steps}, or support {state.support_size} != 8")
+    if state.buffer.size != min(steps, GPILS_CONT_CONFIG.buffer_size):
+        raise AssertionError(f"buffer size {state.buffer.size}")
+    if not _params_finite(state.actor.net) or not _params_finite(state.critic.net) or not math.isfinite(float(state.loss)):
+        raise AssertionError(f"non-finite params or loss {float(state.loss)}")
+    log(
+        f"[gpils_cont_segment] mo-hopper num_envs={CONT_ENVS} hidden={GPILS_CONT_CONFIG.hidden} n_critics=2 "
+        f"BatchRenorm support=8 gradient_updates=1: {iters} iters in {dt:.3f} s = {iters * CONT_ENVS / dt:.0f} "
+        f"env-steps/s, {1e3 * dt / iters:.2f} ms/iter, critic loss {float(state.loss):.4g} [{smi}]"
+    )
+    profile_window(lambda: agent.train_segment(state, 3), "gpils_cont 3 iters")
+
+
+def phase_gpils_cont_train(smi: str) -> int:
+    """``GPILSContinuous.train`` on the hopper: 2 outer iterations, the front of 32 weights scored on the card."""
+    env = make("mo-hopper-jx-v5", max_episode_steps=HOPPER_EPISODE_STEPS)
+    agent = GPILSContinuous(env, GPILS_CONT_CONFIG)
+    timer = PhaseTimer()
+    timer.wrap(agent, "eval_weights_values", keep=lambda out: out.shape[0])
+    t0 = time.perf_counter()
+    state = agent.train(
+        total_timesteps=2 * CONT_STEPS_PER_ITER,
+        ref_point=HOPPER_REF_POINT,
+        num_eval_weights_for_front=32,
+        timesteps_per_iter=CONT_STEPS_PER_ITER,
+    )
+    torch.cuda.synchronize()
+    host = agent._last_metrics
+    if not agent.ccs or state.global_step != 2 * CONT_STEPS_PER_ITER:
+        raise AssertionError(f"CCS {agent.ccs}, global_step {state.global_step}")
+    evals = ", ".join(f"{k} weights {1e3 * dt:.0f} ms" for dt, k in timer.calls["eval_weights_values"])
+    log(f"[gpils_cont_train] GPILSContinuous.train {state.global_step} steps, 2 outer iterations, CCS of "
+        f"{len(agent.ccs)}, in {time.perf_counter() - t0:.2f} s; evaluations: {evals}; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host, HOPPER_REF_POINT)
+
+
+def phase_gpipd_cont_train(smi: str) -> int:
+    """``GPIPDContinuous.train`` on the hopper: 2 outer iterations; the second
+    resets the priorities, fits the dynamics to convergence and rolls out."""
+    env = make("mo-hopper-jx-v5", max_episode_steps=HOPPER_EPISODE_STEPS)
+    agent = GPIPDContinuous(env, GPIPD_CONT_CONFIG)
+    sizes = []  # the real buffer's size at each priority reset
+    on_new_task = agent._on_new_task
+    agent._on_new_task = lambda st, w: (sizes.append(st.base.buffer.size), on_new_task(st, w))[1]
+    timer = PhaseTimer()
+    for name in ("_on_new_task", "fit_dynamics", "rollout_dynamics", "eval_weights_values"):
+        timer.wrap(agent, name)
+    timer.wrap(agent.dynamics, "fit_converged", keep=lambda out: (float(out[1]), out[2]))
+    t0 = time.perf_counter()
+    state = agent.train(
+        total_timesteps=2 * CONT_STEPS_PER_ITER,
+        ref_point=HOPPER_REF_POINT,
+        num_eval_weights_for_front=32,
+        timesteps_per_iter=CONT_STEPS_PER_ITER,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("fit_dynamics", "rollout_dynamics", "fit_converged"):
+        if not timer.calls.get(name):
+            raise AssertionError(f"GPIPDContinuous.train never ran {name}")
+    if sizes != [0, CONT_STEPS_PER_ITER]:
+        raise AssertionError(f"priority resets at buffer sizes {sizes}, expected [0, {CONT_STEPS_PER_ITER}]")
+    base, host = state.base, agent._last_metrics
+    buf, dyna = base.buffer, state.dyna_buffer
+    prios = buf.priorities[: buf.size]
+    if dyna.size == 0 or not bool(torch.isfinite(prios).all()) or not bool((prios > 0).all()):
+        raise AssertionError(f"imagined rows {dyna.size}, priorities finite and > 0: "
+                             f"{bool(torch.isfinite(prios).all())}, {bool((prios > 0).all())}")
+    if not all(_params_finite(n) for n in (base.actor.net, base.critic.net, state.ens.net)):
+        raise AssertionError("non-finite actor, critic or dynamics params")
+    fits = ", ".join(f"{1e3 * dt:.1f} ms ({epochs} epochs, holdout MSE {mse:.4g})" for dt, (mse, epochs) in timer.calls["fit_converged"])
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.1f} ms" for dt, _ in timer.calls[name])
+                     for name in ("_on_new_task", "fit_dynamics", "rollout_dynamics", "eval_weights_values"))
+    log(f"[gpipd_cont_train] GPIPDContinuous.train {base.global_step} steps, 2 outer iterations in {wall:.2f} s; {each}; "
+        f"fit_converged {fits}; imagined buffer {dyna.size} rows; real buffer {buf.size} rows, priorities in "
+        f"[{float(prios.min()):.4g}, {float(prios.max()):.4g}]; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host, HOPPER_REF_POINT)
 
 
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
@@ -573,12 +746,15 @@ def main() -> int:
     phase_build()
     timed = phase_kernel_vs_plain(smi)
     archive = phase_archive_add(smi)
+    planar = phase_planar(smi)
 
     # each path's launches, counted from 0 just before it and read just after
     paths = {
         "envelope": lambda: (phase_train_segment(smi), phase_train_and_score()),
         "gpils": lambda: (phase_gpils_segment(smi), phase_gpils_train(smi)),
         "gpipd": lambda: phase_gpipd_train(smi),
+        "gpils_cont": lambda: (phase_gpils_cont_segment(smi), phase_gpils_cont_train(smi)),
+        "gpipd_cont": lambda: phase_gpipd_cont_train(smi),
     }
     launches_by_path = {}
     for name, drive in paths.items():
@@ -608,6 +784,7 @@ def main() -> int:
         "sizes": timed,
         "archive_add": archive,
     }
+    log(f"[planar] {json.dumps(planar)}")
     log(smi)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

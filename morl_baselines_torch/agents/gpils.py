@@ -112,7 +112,117 @@ class GPILSState:
         return self.support[: self.support_size]
 
 
-class GPILS(MOAgentBase):
+class LinearSupportLoop:
+    """The weight support and the LinearSupport outer loop shared by the GPI
+    agents (reference gpi_ls_jax.py:708-830): the agent supplies ``cfg``,
+    ``init_state``, ``train_segment`` and ``eval_weights_values``; its state
+    has ``task_w``, ``support``, ``support_size`` and ``global_step``."""
+
+    # --------------------------------------------------------------- support
+
+    def set_weight_support(self, state, weights: list[np.ndarray]):
+        """Host-side: install the (deduped, reference utils.unique_tol) support set."""
+        ws = unique_tol([np.asarray(w) for w in weights])[: self.cfg.max_support]
+        support = np.zeros((self.cfg.max_support, self.reward_dim), dtype=np.float32)
+        for i, w in enumerate(ws):
+            support[i] = w
+        state.support = torch.as_tensor(support, device=self.device)
+        state.support_size = max(len(ws), 1)
+        return state
+
+    def _batch_weights(self, state, batch_size: int) -> torch.Tensor:
+        """(B, d): the first half the task weights of random envs, the rest
+        support rows.  With per-episode resampling the envs' task weights
+        diverge, so the half-batch is drawn per row across envs (reference
+        one_update :427-433 has one env and uses its one current w)."""
+        gen, dev = state.gen, self.device
+        half = batch_size // 2
+        w1 = state.task_w[torch.randint(0, self.cfg.num_envs, (half,), generator=gen, device=dev)]
+        w2 = state.support[torch.randint(0, state.support_size, (batch_size - half,), generator=gen, device=dev)]
+        return torch.cat([w1, w2], dim=0)
+
+    def _eval_np(self, state, weights, rep: int, max_steps: int) -> np.ndarray:
+        return self.eval_weights_values(state, weights, rep, max_steps).cpu().numpy()
+
+    # ----------------------------------------------------------------- train
+
+    def _corner_support(self, linear_support: LinearSupport, w: np.ndarray, algo: str) -> list[np.ndarray]:
+        """The weight support M of an iteration: CCS weights (+ the top-4 corner weights for gpi-ls) + w."""
+        if algo == "gpi-ls":
+            return linear_support.get_weight_support() + linear_support.get_corner_weights(top_k=4) + [w]
+        return linear_support.get_weight_support() + [w]
+
+    def _next_weight(self, state, linear_support: LinearSupport, algo: str, rep: int, max_steps: int):
+        if algo == "gpi-ls":
+            self.set_weight_support(state, linear_support.get_weight_support())
+            evaluator = lambda ws: self._eval_np(state, ws, rep, max_steps)  # noqa: E731
+            return linear_support.next_weight("gpi-ls", gpi_evaluator=evaluator, rng=self._rng)
+        return linear_support.next_weight("ols", rng=self._rng)
+
+    def _update_ccs(self, state, linear_support: LinearSupport, w, M, algo: str, rep: int, max_steps: int) -> None:
+        """Add the evaluated values of this iteration's weights to the CCS: w
+        alone for ols, every support weight for gpi-ls; then install the CCS
+        weights as the support."""
+        if algo == "ols":
+            linear_support.add_solution(self._eval_np(state, np.asarray(w)[None], rep, max_steps)[0], w)
+        else:
+            M_arr = np.stack(unique_tol([np.asarray(m) for m in M]))
+            for wcw, val in zip(M_arr, self._eval_np(state, M_arr, rep, max_steps)):
+                linear_support.add_solution(val, wcw)
+        self.set_weight_support(state, linear_support.get_weight_support())
+
+    def _log_front(self, state, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0) -> None:
+        front = self._eval_np(state, eval_weights, rep, max_steps)
+        metrics = multi_policy_metrics(front, np.asarray(ref_point), eval_weights, known_pareto_front)
+        metrics["charts/SPS"] = state.global_step / (time.time() - t0)
+        self.logger.log(metrics, state.global_step)
+        self._last_front = front
+        self._last_metrics = metrics
+
+    def train(
+        self,
+        total_timesteps: int,
+        ref_point: np.ndarray | None = None,
+        known_pareto_front: np.ndarray | None = None,
+        num_eval_weights_for_front: int = 32,
+        num_eval_episodes_for_front: int = 1,
+        timesteps_per_iter: int = 10_000,
+        weight_selection_algo: str = "gpi-ls",
+        eval_max_steps: int | None = None,
+        state=None,
+    ):
+        """Outer loop (reference gpi_ls_jax.py:708-830): LinearSupport picks
+        which weights get trained; the inner iterations run on the device."""
+        cfg = self.cfg
+        state = state if state is not None else self.init_state()
+        rep, algo = num_eval_episodes_for_front, weight_selection_algo
+        max_steps = eval_max_steps or self.env.max_episode_steps or 500
+        linear_support = LinearSupport(num_objectives=self.reward_dim, epsilon=0.0 if algo == "ols" else None)
+        self._rng = random.Random(cfg.seed)
+        eval_weights = equally_spaced_weights(self.reward_dim, num_eval_weights_for_front).astype(np.float32)
+        max_iter = max(1, total_timesteps // timesteps_per_iter)
+        t0 = time.time()
+
+        for _ in range(max_iter):
+            w = self._next_weight(state, linear_support, algo, rep, max_steps)
+            if w is None:
+                break
+            M = self._corner_support(linear_support, w, algo)
+            self.set_weight_support(state, M)
+            state.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
+
+            # -- inner iterations on the device
+            self.train_segment(state, max(1, timesteps_per_iter // cfg.num_envs), algo == "gpi-ls")
+
+            self._update_ccs(state, linear_support, w, M, algo, rep, max_steps)
+
+            if ref_point is not None:
+                self._log_front(state, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0)
+        self._linear_support = linear_support
+        return state
+
+
+class GPILS(LinearSupportLoop, MOAgentBase):
     def __init__(self, env: MOEnv, config: GPILSConfig = GPILSConfig(), log: bool = False, device="cuda"):
         super().__init__(env, config, log=log, device=device)
         self.cfg = config
@@ -171,18 +281,6 @@ class GPILS(MOAgentBase):
             iter_count=0,
             loss=torch.full((), float("nan"), device=self.device),
         )
-
-    # --------------------------------------------------------------- support
-
-    def set_weight_support(self, state: GPILSState, weights: list[np.ndarray]) -> GPILSState:
-        """Host-side: install the (deduped, reference utils.unique_tol) support set."""
-        ws = unique_tol([np.asarray(w) for w in weights])[: self.cfg.max_support]
-        support = np.zeros((self.cfg.max_support, self.reward_dim), dtype=np.float32)
-        for i, w in enumerate(ws):
-            support[i] = w
-        state.support = torch.as_tensor(support, device=self.device)
-        state.support_size = max(len(ws), 1)
-        return state
 
     # ------------------------------------------------------------------- act
 
@@ -329,17 +427,6 @@ class GPILS(MOAgentBase):
         state.global_step += n
         state.iter_count += 1
 
-    def _batch_weights(self, state: GPILSState, batch_size: int) -> torch.Tensor:
-        """(B, d): the first half the task weights of random envs, the rest
-        support rows.  With per-episode resampling the envs' task weights
-        diverge, so the half-batch is drawn per row across envs (reference
-        one_update :427-433 has one env and uses its one current w)."""
-        gen, dev = state.gen, self.device
-        half = batch_size // 2
-        w1 = state.task_w[torch.randint(0, self.cfg.num_envs, (half,), generator=gen, device=dev)]
-        w2 = state.support[torch.randint(0, state.support_size, (batch_size - half,), generator=gen, device=dev)]
-        return torch.cat([w1, w2], dim=0)
-
     def train_segment(self, state: GPILSState, num_iters: int, change_w_every_episode: bool = True) -> GPILSState:
         """Run ``num_iters`` actor-learner iterations, updating ``state`` in place."""
         cfg = self.cfg
@@ -388,78 +475,3 @@ class GPILS(MOAgentBase):
         act = lambda obs, w, g: self.act_eval(state.ts.net, support, obs, w)  # noqa: E731
         gen = torch.Generator(self.device).manual_seed(0)
         return evaluate_front(self.env, act, weights, gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
-
-    def _eval_np(self, state, weights, rep: int, max_steps: int) -> np.ndarray:
-        return self.eval_weights_values(state, weights, rep, max_steps).cpu().numpy()
-
-    # ----------------------------------------------------------------- train
-
-    def _corner_support(self, linear_support: LinearSupport, w: np.ndarray, algo: str) -> list[np.ndarray]:
-        """The weight support M of an iteration: CCS weights (+ the top-4 corner weights for gpi-ls) + w."""
-        if algo == "gpi-ls":
-            return linear_support.get_weight_support() + linear_support.get_corner_weights(top_k=4) + [w]
-        return linear_support.get_weight_support() + [w]
-
-    def _next_weight(self, state, linear_support: LinearSupport, algo: str, rep: int, max_steps: int):
-        if algo == "gpi-ls":
-            self.set_weight_support(state, linear_support.get_weight_support())
-            evaluator = lambda ws: self._eval_np(state, ws, rep, max_steps)  # noqa: E731
-            return linear_support.next_weight("gpi-ls", gpi_evaluator=evaluator, rng=self._rng)
-        return linear_support.next_weight("ols", rng=self._rng)
-
-    def _log_front(self, state, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0) -> None:
-        front = self._eval_np(state, eval_weights, rep, max_steps)
-        metrics = multi_policy_metrics(front, np.asarray(ref_point), eval_weights, known_pareto_front)
-        metrics["charts/SPS"] = state.global_step / (time.time() - t0)
-        self.logger.log(metrics, state.global_step)
-        self._last_front = front
-        self._last_metrics = metrics
-
-    def train(
-        self,
-        total_timesteps: int,
-        ref_point: np.ndarray | None = None,
-        known_pareto_front: np.ndarray | None = None,
-        num_eval_weights_for_front: int = 32,
-        num_eval_episodes_for_front: int = 1,
-        timesteps_per_iter: int = 10_000,
-        weight_selection_algo: str = "gpi-ls",
-        eval_max_steps: int | None = None,
-        state: GPILSState | None = None,
-    ) -> GPILSState:
-        """Outer loop (reference gpi_ls_jax.py:708-830): LinearSupport picks
-        which weights get trained; the inner iterations run on the device."""
-        cfg = self.cfg
-        state = state if state is not None else self.init_state()
-        rep, algo = num_eval_episodes_for_front, weight_selection_algo
-        max_steps = eval_max_steps or self.env.max_episode_steps or 500
-        linear_support = LinearSupport(num_objectives=self.reward_dim, epsilon=0.0 if algo == "ols" else None)
-        self._rng = random.Random(cfg.seed)
-        eval_weights = equally_spaced_weights(self.reward_dim, num_eval_weights_for_front).astype(np.float32)
-        max_iter = max(1, total_timesteps // timesteps_per_iter)
-        t0 = time.time()
-
-        for _ in range(max_iter):
-            w = self._next_weight(state, linear_support, algo, rep, max_steps)
-            if w is None:
-                break
-            M = self._corner_support(linear_support, w, algo)
-            self.set_weight_support(state, M)
-            state.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
-
-            # -- inner iterations on the device
-            self.train_segment(state, max(1, timesteps_per_iter // cfg.num_envs), algo == "gpi-ls")
-
-            # -- update the CCS
-            if algo == "ols":
-                linear_support.add_solution(self._eval_np(state, np.asarray(w)[None], rep, max_steps)[0], w)
-            else:
-                M_arr = np.stack(unique_tol([np.asarray(m) for m in M]))
-                for wcw, val in zip(M_arr, self._eval_np(state, M_arr, rep, max_steps)):
-                    linear_support.add_solution(val, wcw)
-            self.set_weight_support(state, linear_support.get_weight_support())
-
-            if ref_point is not None:
-                self._log_front(state, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0)
-        self._linear_support = linear_support
-        return state

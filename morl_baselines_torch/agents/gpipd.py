@@ -74,7 +74,211 @@ class GPIPDState:
     ens: EnsembleState
 
 
-class GPIPD(GPILS):
+class DynaLoop:
+    """The GPI-PD outer loop shared by the discrete and continuous agents: the
+    LinearSupport loop of ``LinearSupportLoop`` whose inner iterations run in
+    sub-segments punctuated by dynamics fits and imagined rollouts.  The
+    agent supplies ``dynamics``, ``model_env``, ``train_segment_pd``,
+    ``_rollout_actions`` (the policy's actions in imagined rollouts) and
+    ``_on_new_task`` (the PER priorities on a new task weight); its state has
+    ``base``, ``dyna_buffer`` and ``ens``."""
+
+    def _model_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        """Buffer actions as the dynamics model's inputs."""
+        return actions
+
+    def _fit_row_weights(self, data: Transition) -> torch.Tensor | None:
+        """Per-row NLL weights of the convergence fit; None is the reference's uniform loss."""
+        return None
+
+    # ----------------------------------------------------------- model phase
+
+    def fit_dynamics(self, state):
+        """Fit the ensemble on real transitions (reference :748-754), in place;
+        returns (state, loss).
+
+        Default (``dynamics_fit_to_convergence``): the reference's protocol —
+        the whole buffer with per-member bootstrap and holdout early stopping
+        (loss: the mean holdout MSE).  Otherwise a fixed-budget fit on
+        ``dynamics_fit_samples`` uniformly sampled rows (uniform even under
+        PER: the model must fit the data distribution, not the TD-error
+        distribution; loss: the mean training NLL)."""
+        buf, gen = state.base.buffer, state.base.gen
+        if self.cfg.dynamics_fit_to_convergence:
+            data = buf.data
+            X = torch.cat([data.obs, self._model_actions(data.action)], dim=-1)
+            Y = torch.cat([data.next_obs - data.obs, data.reward], dim=-1)
+            state.ens, loss, _epochs = self.dynamics.fit_converged(state.ens, X, Y, buf.size, gen, self._fit_row_weights(data))
+            return state, loss
+        idx = torch.randint(0, max(buf.size, 1), (self.cfg.dynamics_fit_samples,), generator=gen, device=gen.device)
+        batch = buf.gather(idx)
+        X = torch.cat([batch.obs, self._model_actions(batch.action)], dim=-1)
+        Y = torch.cat([batch.next_obs - batch.obs, batch.reward], dim=-1)
+        state.ens, loss = self.dynamics.fit(state.ens, X, Y, gen)
+        return state, loss
+
+    @torch.no_grad()
+    def rollout_dynamics(self, state):
+        """Imagined rollouts of the agent's policy, filtered by uncertainty
+        (reference gpi_pd.py:367-414), in place; returns (state, mean uncertainty)."""
+        cfg = self.cfg
+        base, gen, dyna = state.base, state.base.gen, state.dyna_buffer
+        starts = cfg.dynamics_rollout_starts
+        obs = base.buffer.sample_obs(gen, starts)
+        w = base.support[torch.randint(0, base.support_size, (starts,), generator=gen, device=gen.device)]
+        alive = torch.ones((starts,), dtype=torch.bool, device=self.device)
+        rows = torch.arange(starts, device=self.device)
+        mean_unc = []
+        for _ in range(cfg.dynamics_rollout_len):
+            actions = self._rollout_actions(base, obs, w)
+            next_obs, reward, term, unc = self.model_env.step(state.ens, obs, self._model_actions(actions), gen)
+            # rollouts stop at termination (reference nonterm_mask,
+            # gpi_pd.py:395-399): the terminal transition itself is kept, but
+            # finished rows are frozen and never stepped or stored again.
+            keep = (unc <= cfg.dynamics_uncertainty_threshold) & alive
+            # as in the JAX package (static shapes there): a dropped row is
+            # written as a copy of the first kept row, and nothing is written
+            # when no row is kept
+            if bool(keep.any()):
+                repl = torch.where(keep, rows, torch.argmax(keep.to(torch.uint8)))
+                dyna.add_batch(
+                    Transition(
+                        obs=obs[repl],
+                        action=actions[repl],
+                        reward=reward[repl],
+                        next_obs=next_obs[repl],
+                        terminated=term.to(torch.float32)[repl],
+                    )
+                )
+            alive = alive & ~term
+            obs = torch.where(alive[:, None], next_obs, obs)
+            mean_unc.append(unc.mean())
+        return state, torch.stack(mean_unc).mean()
+
+    def _mixed_batch(self, state, n_real: int, n_im: int):
+        """[real | imagined] rows; returns (batch, real row indices for PER or None).
+
+        Before any imagined data exists, real rows stand in for it (tiled
+        when n_im > n_real)."""
+        base = state.base
+        gen = base.gen
+        if self.cfg.per:
+            real, idx, _ = base.buffer.sample(gen, n_real)
+        else:
+            real, idx = base.buffer.sample(gen, n_real), None
+        if n_im == 0:
+            return real, idx
+        if state.dyna_buffer.size > 0:
+            im = state.dyna_buffer.sample(gen, n_im)
+        else:
+            ridx = torch.arange(n_im, device=self.device) % n_real
+            im = Transition(*(x[ridx] for x in real))
+        return Transition(*(torch.cat([a, b]) for a, b in zip(real, im))), idx
+
+    @torch.no_grad()
+    def _diagnostics(self, state) -> dict:
+        """Are the rare positive-reward transitions (minecart ore sales) in the
+        real and imagined data, and does PER weight them?"""
+        buf = state.base.buffer
+        n = buf.size
+        pos_rows = torch.any(buf.data.reward[:n] > 0, dim=-1)
+        diag = {
+            "diag/buffer_positive_reward_rows": int(pos_rows.sum()),
+            "diag/buffer_size": int(n),
+        }
+        if self.cfg.per:
+            prios = buf.priorities[:n]
+            if bool(pos_rows.any()):
+                diag["diag/mean_priority_positive_rows"] = float(prios[pos_rows].mean())
+            diag["diag/mean_priority_all"] = float(prios.mean()) if n > 0 else 0.0
+        if self.cfg.dyna:
+            dbuf = state.dyna_buffer
+            dn = dbuf.size
+            diag.update(
+                {
+                    "diag/dyna_size": int(dn),
+                    "diag/dyna_positive_reward_rows": int(torch.any(dbuf.data.reward[:dn] > 0.1, dim=-1).sum()),
+                    "diag/dyna_terminated_rows": int(dbuf.data.terminated[:dn].sum()),
+                }
+            )
+        return diag
+
+    # ---------------------------------------------------------- orchestration
+
+    def train(self, total_timesteps: int, **kwargs):  # type: ignore[override]
+        """GPI-PD outer loop: LinearSupport + per-sub-segment dynamics phases."""
+        state = kwargs.pop("state", None) or self.init_state()
+        return self._train_outer(state, total_timesteps, **kwargs)
+
+    def _train_outer(
+        self,
+        state,
+        total_timesteps: int,
+        ref_point: np.ndarray | None = None,
+        known_pareto_front: np.ndarray | None = None,
+        num_eval_weights_for_front: int = 32,
+        num_eval_episodes_for_front: int = 1,
+        timesteps_per_iter: int = 10_000,
+        weight_selection_algo: str = "gpi-ls",
+        eval_max_steps: int | None = None,
+    ):
+        cfg = self.cfg
+        rep, algo = num_eval_episodes_for_front, weight_selection_algo
+        max_steps = eval_max_steps or self.env.max_episode_steps or 500
+        linear_support = LinearSupport(num_objectives=self.reward_dim, epsilon=0.0 if algo == "ols" else None)
+        self._rng = random.Random(cfg.seed)
+        eval_weights = equally_spaced_weights(self.reward_dim, num_eval_weights_for_front).astype(np.float32)
+        max_iter = max(1, total_timesteps // timesteps_per_iter)
+        t0 = time.time()
+        # steps-since counters (persist across outer iterations) instead of a
+        # modulo on the per-iteration clock: with unequal freqs the modulo only
+        # fires when freq is a multiple of the sub-segment stride.  They start
+        # at their freqs so the first eligible check fires.
+        since_fit = cfg.dynamics_train_freq
+        since_rollout = cfg.dynamics_rollout_freq
+        for _ in range(max_iter):
+            base = state.base
+            w = self._next_weight(base, linear_support, algo, rep, max_steps)
+            if w is None:
+                break
+            M = self._corner_support(linear_support, w, algo)
+            self.set_weight_support(base, M)
+            base.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
+            self._on_new_task(state, w)
+
+            # sub-segments punctuated by dynamics fits and rollouts on their
+            # own cadences (reference dynamics_train_freq / dynamics_rollout_freq)
+            iters = max(1, timesteps_per_iter // cfg.num_envs)
+            sub = max(1, min(cfg.dynamics_train_freq, cfg.dynamics_rollout_freq, iters))
+            done_iters = 0
+            while done_iters < iters:
+                n = min(sub, iters - done_iters)
+                if cfg.dyna and base.buffer.size >= cfg.dynamics_fit_samples // 4:
+                    if since_fit >= cfg.dynamics_train_freq:
+                        self.fit_dynamics(state)
+                        since_fit -= cfg.dynamics_train_freq
+                    if since_rollout >= cfg.dynamics_rollout_freq:
+                        self.rollout_dynamics(state)
+                        since_rollout -= cfg.dynamics_rollout_freq
+                self.train_segment_pd(state, n, algo == "gpi-ls")
+                done_iters += n
+                since_fit += n
+                since_rollout += n
+
+            self.logger.log(self._diagnostics(state), base.global_step)
+
+            M_arr = np.stack(unique_tol([np.asarray(m) for m in M]))
+            for wcw, val in zip(M_arr, self._eval_np(base, M_arr, rep, max_steps)):
+                linear_support.add_solution(val, wcw)
+            self.set_weight_support(base, linear_support.get_weight_support())
+
+            if ref_point is not None:
+                self._log_front(base, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0)
+        self._linear_support = linear_support
+        return state
+
+
+class GPIPD(DynaLoop, GPILS):
     def __init__(
         self,
         env: MOEnv,
@@ -104,75 +308,18 @@ class GPIPD(GPILS):
         )
         return GPIPDState(base=super().init_state(seed), dyna_buffer=dyna_buffer, ens=self.dynamics.init_state(seed + 1))
 
-    def _one_hot(self, actions: torch.Tensor) -> torch.Tensor:
+    def _model_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        """The dynamics model sees a one-hot action."""
         return F.one_hot(actions.long(), self.env.num_actions).to(torch.float32)
 
-    # ----------------------------------------------------------- model phase
+    def _rollout_actions(self, base: GPILSState, obs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return self._gpi_actions(base.ts.net, obs, w, base.valid_support)
 
-    def fit_dynamics(self, state: GPIPDState):
-        """Fit the ensemble on real transitions (reference :748-754), in place;
-        returns (state, loss).
-
-        Default (``dynamics_fit_to_convergence``): the reference's protocol —
-        the whole buffer with per-member bootstrap and holdout early stopping
-        (loss: the mean holdout MSE).  Otherwise a fixed-budget fit on
-        ``dynamics_fit_samples`` uniformly sampled rows (uniform even under
-        PER: the model must fit the data distribution, not the TD-error
-        distribution; loss: the mean training NLL)."""
-        buf, gen = state.base.buffer, state.base.gen
-        if self.cfg.dynamics_fit_to_convergence:
-            data = buf.data
-            X = torch.cat([data.obs, self._one_hot(data.action)], dim=-1)
-            Y = torch.cat([data.next_obs - data.obs, data.reward], dim=-1)
-            rw = None
-            if self.cfg.dynamics_fit_positive_weight > 0:
-                rw = 1.0 + self.cfg.dynamics_fit_positive_weight * torch.any(data.reward > 0, dim=-1).to(torch.float32)
-            state.ens, loss, _epochs = self.dynamics.fit_converged(state.ens, X, Y, buf.size, gen, rw)
-            return state, loss
-        idx = torch.randint(0, max(buf.size, 1), (self.cfg.dynamics_fit_samples,), generator=gen, device=gen.device)
-        batch = buf.gather(idx)
-        X = torch.cat([batch.obs, self._one_hot(batch.action)], dim=-1)
-        Y = torch.cat([batch.next_obs - batch.obs, batch.reward], dim=-1)
-        state.ens, loss = self.dynamics.fit(state.ens, X, Y, gen)
-        return state, loss
-
-    @torch.no_grad()
-    def rollout_dynamics(self, state: GPIPDState):
-        """Imagined GPI rollouts filtered by uncertainty (reference :367-414),
-        in place; returns (state, mean uncertainty)."""
-        cfg = self.cfg
-        base, gen, dyna = state.base, state.base.gen, state.dyna_buffer
-        starts = cfg.dynamics_rollout_starts
-        obs = base.buffer.sample_obs(gen, starts)
-        w = base.support[torch.randint(0, base.support_size, (starts,), generator=gen, device=gen.device)]
-        alive = torch.ones((starts,), dtype=torch.bool, device=self.device)
-        rows = torch.arange(starts, device=self.device)
-        mean_unc = []
-        for _ in range(cfg.dynamics_rollout_len):
-            actions = self._gpi_actions(base.ts.net, obs, w, base.valid_support)
-            next_obs, reward, term, unc = self.model_env.step(state.ens, obs, self._one_hot(actions), gen)
-            # rollouts stop at termination (reference nonterm_mask,
-            # gpi_pd.py:395-399): the terminal transition itself is kept, but
-            # finished rows are frozen and never stepped or stored again.
-            keep = (unc <= cfg.dynamics_uncertainty_threshold) & alive
-            # as in the JAX package (static shapes there): a dropped row is
-            # written as a copy of the first kept row, and nothing is written
-            # when no row is kept
-            if bool(keep.any()):
-                repl = torch.where(keep, rows, torch.argmax(keep.to(torch.uint8)))
-                dyna.add_batch(
-                    Transition(
-                        obs=obs[repl],
-                        action=actions[repl],
-                        reward=reward[repl],
-                        next_obs=next_obs[repl],
-                        terminated=term.to(torch.float32)[repl],
-                    )
-                )
-            alive = alive & ~term
-            obs = torch.where(alive[:, None], next_obs, obs)
-            mean_unc.append(unc.mean())
-        return state, torch.stack(mean_unc).mean()
+    def _fit_row_weights(self, data: Transition) -> torch.Tensor | None:
+        """(1 + dynamics_fit_positive_weight) NLL weight on positive-reward rows, or None."""
+        if self.cfg.dynamics_fit_positive_weight <= 0:
+            return None
+        return 1.0 + self.cfg.dynamics_fit_positive_weight * torch.any(data.reward > 0, dim=-1).to(torch.float32)
 
     # ----------------------------------------------------------- learn phase
 
@@ -246,26 +393,6 @@ class GPIPD(GPILS):
         buf.max_priority = torch.clamp(prios.max(), min=cfg.min_priority**cfg.per_alpha)
         return state
 
-    def _mixed_batch(self, state: GPIPDState, n_real: int, n_im: int):
-        """[real | imagined] rows; returns (batch, real row indices for PER or None).
-
-        Before any imagined data exists, real rows stand in for it (tiled
-        when n_im > n_real)."""
-        base = state.base
-        gen = base.gen
-        if self.cfg.per:
-            real, idx, _ = base.buffer.sample(gen, n_real)
-        else:
-            real, idx = base.buffer.sample(gen, n_real), None
-        if n_im == 0:
-            return real, idx
-        if state.dyna_buffer.size > 0:
-            im = state.dyna_buffer.sample(gen, n_im)
-        else:
-            ridx = torch.arange(n_im, device=self.device) % n_real
-            im = Transition(*(x[ridx] for x in real))
-        return Transition(*(torch.cat([a, b]) for a, b in zip(real, im))), idx
-
     def train_segment_pd(self, state: GPIPDState, num_iters: int, change_w_every_episode: bool = True) -> GPIPDState:
         """GPILS segment whose updates draw mixed real + imagined batches, in place."""
         cfg = self.cfg
@@ -305,105 +432,8 @@ class GPIPD(GPILS):
 
     # ---------------------------------------------------------- orchestration
 
-    def train(self, total_timesteps: int, **kwargs):  # type: ignore[override]
-        """GPI-PD outer loop: LinearSupport + per-sub-segment dynamics phases."""
-        state = kwargs.pop("state", None) or self.init_state()
-        return self._train_outer(state, total_timesteps, **kwargs)
-
-    @torch.no_grad()
-    def _diagnostics(self, state: GPIPDState) -> dict:
-        """Are the rare positive-reward transitions (minecart ore sales) in the
-        real and imagined data, and does PER weight them?"""
-        buf = state.base.buffer
-        n = buf.size
-        pos_rows = torch.any(buf.data.reward[:n] > 0, dim=-1)
-        diag = {
-            "diag/buffer_positive_reward_rows": int(pos_rows.sum()),
-            "diag/buffer_size": int(n),
-        }
-        if self.cfg.per:
-            prios = buf.priorities[:n]
-            if bool(pos_rows.any()):
-                diag["diag/mean_priority_positive_rows"] = float(prios[pos_rows].mean())
-            diag["diag/mean_priority_all"] = float(prios.mean()) if n > 0 else 0.0
-        if self.cfg.dyna:
-            dbuf = state.dyna_buffer
-            dn = dbuf.size
-            diag.update(
-                {
-                    "diag/dyna_size": int(dn),
-                    "diag/dyna_positive_reward_rows": int(torch.any(dbuf.data.reward[:dn] > 0.1, dim=-1).sum()),
-                    "diag/dyna_terminated_rows": int(dbuf.data.terminated[:dn].sum()),
-                }
-            )
-        return diag
-
-    def _train_outer(
-        self,
-        state: GPIPDState,
-        total_timesteps: int,
-        ref_point: np.ndarray | None = None,
-        known_pareto_front: np.ndarray | None = None,
-        num_eval_weights_for_front: int = 32,
-        num_eval_episodes_for_front: int = 1,
-        timesteps_per_iter: int = 10_000,
-        weight_selection_algo: str = "gpi-ls",
-        eval_max_steps: int | None = None,
-    ) -> GPIPDState:
-        cfg = self.cfg
-        rep, algo = num_eval_episodes_for_front, weight_selection_algo
-        max_steps = eval_max_steps or self.env.max_episode_steps or 500
-        linear_support = LinearSupport(num_objectives=self.reward_dim, epsilon=0.0 if algo == "ols" else None)
-        self._rng = random.Random(cfg.seed)
-        eval_weights = equally_spaced_weights(self.reward_dim, num_eval_weights_for_front).astype(np.float32)
-        max_iter = max(1, total_timesteps // timesteps_per_iter)
-        t0 = time.time()
-        # steps-since counters (persist across outer iterations) instead of a
-        # modulo on the per-iteration clock: with unequal freqs the modulo only
-        # fires when freq is a multiple of the sub-segment stride.  They start
-        # at their freqs so the first eligible check fires.
-        since_fit = cfg.dynamics_train_freq
-        since_rollout = cfg.dynamics_rollout_freq
-        for _ in range(max_iter):
-            base = state.base
-            w = self._next_weight(base, linear_support, algo, rep, max_steps)
-            if w is None:
-                break
-            M = self._corner_support(linear_support, w, algo)
-            self.set_weight_support(base, M)
-            base.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
-            # per-transition priority recompute against the new task weight
-            # over the whole buffer (reference _reset_priorities :619-660)
-            if cfg.per and base.buffer.size > 0:
-                self.recompute_priorities(state, torch.as_tensor(w, dtype=torch.float32, device=self.device))
-
-            # sub-segments punctuated by dynamics fits and rollouts on their
-            # own cadences (reference dynamics_train_freq / dynamics_rollout_freq)
-            iters = max(1, timesteps_per_iter // cfg.num_envs)
-            sub = max(1, min(cfg.dynamics_train_freq, cfg.dynamics_rollout_freq, iters))
-            done_iters = 0
-            while done_iters < iters:
-                n = min(sub, iters - done_iters)
-                if cfg.dyna and base.buffer.size >= cfg.dynamics_fit_samples // 4:
-                    if since_fit >= cfg.dynamics_train_freq:
-                        self.fit_dynamics(state)
-                        since_fit -= cfg.dynamics_train_freq
-                    if since_rollout >= cfg.dynamics_rollout_freq:
-                        self.rollout_dynamics(state)
-                        since_rollout -= cfg.dynamics_rollout_freq
-                self.train_segment_pd(state, n, algo == "gpi-ls")
-                done_iters += n
-                since_fit += n
-                since_rollout += n
-
-            self.logger.log(self._diagnostics(state), base.global_step)
-
-            M_arr = np.stack(unique_tol([np.asarray(m) for m in M]))
-            for wcw, val in zip(M_arr, self._eval_np(base, M_arr, rep, max_steps)):
-                linear_support.add_solution(val, wcw)
-            self.set_weight_support(base, linear_support.get_weight_support())
-
-            if ref_point is not None:
-                self._log_front(base, eval_weights, rep, max_steps, ref_point, known_pareto_front, t0)
-        self._linear_support = linear_support
-        return state
+    def _on_new_task(self, state: GPIPDState, w: np.ndarray) -> None:
+        """Per-transition priority recompute against the new task weight over
+        the whole buffer (reference _reset_priorities :619-660)."""
+        if self.cfg.per and state.base.buffer.size > 0:
+            self.recompute_priorities(state, torch.as_tensor(w, dtype=torch.float32, device=self.device))

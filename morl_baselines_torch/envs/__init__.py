@@ -3,8 +3,11 @@
 from .base import Box, Discrete, MOEnv, StepOut
 from .dst import DeepSeaTreasure
 from .minecart import Minecart
+from .mountaincar import MOMountainCar, MOMountainCarContinuous
+from .planar import MOHalfCheetahJX, MOHopperJX, PlanarState
 from .registry import ENV_REGISTRY, make
 from .vector import EpisodeStats, VecStepOut, VectorMOEnv
+from .water_reservoir import WaterReservoir
 
 __all__ = [
     "Box",
@@ -13,9 +16,15 @@ __all__ = [
     "ENV_REGISTRY",
     "EpisodeStats",
     "MOEnv",
+    "MOHalfCheetahJX",
+    "MOHopperJX",
+    "MOMountainCar",
+    "MOMountainCarContinuous",
     "Minecart",
+    "PlanarState",
     "StepOut",
     "VecStepOut",
     "VectorMOEnv",
+    "WaterReservoir",
     "make",
 ]

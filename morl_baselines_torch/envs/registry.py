@@ -11,11 +11,20 @@ from typing import Callable, Dict
 from .base import MOEnv
 from .dst import DeepSeaTreasure
 from .minecart import Minecart
+from .mountaincar import MOMountainCar, MOMountainCarContinuous
+from .planar import MOHalfCheetahJX, MOHopperJX
+from .water_reservoir import WaterReservoir
 
 ENV_REGISTRY: Dict[str, Callable[..., MOEnv]] = {
     "deep-sea-treasure-v0": lambda **kw: DeepSeaTreasure(dst_map="convex", **kw),
     "minecart-v0": lambda **kw: Minecart(deterministic=False, **kw),
     "minecart-deterministic-v0": lambda **kw: Minecart(deterministic=True, **kw),
+    "water-reservoir-v0": WaterReservoir,
+    "mo-mountaincar-v0": MOMountainCar,
+    "mo-mountaincarcontinuous-v0": MOMountainCarContinuous,
+    # the planar MuJoCo-class locomotion envs; their constants live on ``device`` (default CUDA)
+    "mo-hopper-jx-v5": MOHopperJX,
+    "mo-halfcheetah-jx-v5": MOHalfCheetahJX,
 }
 
 

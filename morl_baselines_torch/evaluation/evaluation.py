@@ -30,6 +30,9 @@ from ..core.pareto import filter_pareto_dominated
 from ..envs.base import MOEnv
 from ..ops.pareto_kernel import non_dominated_mask_auto
 
+# steps between the host reads that end a rollout once every episode is done
+_DONE_CHECK_EVERY = 32
+
 # act_fn(obs (M, obs_dim), w (M, d), gen) -> actions (M,)
 ActFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]
 
@@ -46,8 +49,11 @@ def rollout_episode(
     """One masked episode per row of ``w`` (M, d); returns
     (vec_return (M, d), disc_vec_return (M, d), length (M,)).
 
-    Steps a fixed number of steps, freezing each row's accumulators after its
-    episode ends (reference eval_mo's while-loop, evaluation.py:42-53).
+    Steps up to ``max_steps`` steps, freezing each row's accumulators after
+    its episode ends (reference eval_mo's while-loop, evaluation.py:42-53).
+    Every ``_DONE_CHECK_EVERY`` steps one host read asks whether every
+    episode has ended, and the loop stops if so; the frozen results are the
+    same.
     """
     max_steps = max_steps or env.max_episode_steps or 1000
     m, d = w.shape
@@ -58,7 +64,9 @@ def rollout_episode(
     disc = torch.zeros((m, d), device=dev)
     gpow = torch.ones((m,), device=dev)
     length = torch.zeros((m,), dtype=torch.int32, device=dev)
-    for _ in range(max_steps):
+    for t in range(max_steps):
+        if t > 0 and t % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
         action = act_fn(obs, w, gen)
         out = env.step(state, action, env.sample_noise(m, gen))
         live = (~done).to(torch.float32)

@@ -1,0 +1,148 @@
+"""Continuous-control actors and critics, weight-conditioned (TD3 family), on torch.
+
+PyTorch port of the TD3 nets of ``morl_baselines_tpu/models/continuous.py``
+(reference gpi_pd_continuous_action.py:34-73, gpi_ls_continuous_action_jax.py:56-107):
+
+- ``StabilizedQNet``: Q(s, a, w) -> R^d with BatchRenorm between layers,
+  WeightNorm dense layers, dropout and leaky-relu (slope 0.01);
+- ``StabilizedActor``: mu(s, w) in [-1, 1]^A with the same recipe, no dropout;
+- ``DeterministicActor`` and ``ContinuousQNet``: the plain ReLU versions.
+
+The layer order is the JAX package's.  ``train=True`` normalizes with batch
+statistics and updates the BatchRenorm running statistics; dropout runs only
+when a forward is given a generator.  The critics take ``members`` for the
+ensemble (outputs (members, B, d)), as ``ensemble(...)`` of the flax module.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .networks import MLP, BatchRenorm, EnsembleDense, WeightNormDense, dense, dropout
+
+
+class _Stabilized(nn.Module):
+    """BatchRenorm -> [WeightNorm Dense -> (Dropout) -> leaky-relu -> BatchRenorm]* -> Dense."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        hidden: Sequence[int],
+        dropout_rate: float,
+        momentum: float,
+        members: int | None,
+        gen: torch.Generator | None,
+    ):
+        super().__init__()
+        self.members = members
+        self.dropout_rate = dropout_rate
+        self.norms = nn.ModuleList(BatchRenorm(f, members, momentum) for f in (in_features, *hidden))
+        self.layers = nn.ModuleList(
+            WeightNormDense(a, b, members, gen) for a, b in zip((in_features, *hidden[:-1]), hidden)
+        )
+        self.out = dense(hidden[-1], out_features, gen) if members is None else EnsembleDense(members, hidden[-1], out_features, gen)
+
+    def trunk(self, x: torch.Tensor, train: bool, dropout_gen: torch.Generator | None) -> torch.Tensor:
+        if self.members is not None and x.dim() == 2:
+            x = x.expand(self.members, *x.shape)
+        x = self.norms[0](x, train)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if self.dropout_rate > 0 and dropout_gen is not None:
+                x = dropout(x, self.dropout_rate, dropout_gen)
+            x = F.leaky_relu(x, 0.01)
+            x = self.norms[i + 1](x, train)
+        return self.out(x)
+
+    def flax_layout(self) -> dict:
+        n = len(self.layers)
+        out = {f"BatchRenorm_{i}": norm for i, norm in enumerate(self.norms)}
+        for i, layer in enumerate(self.layers):
+            out[f"Dense_{i}"] = layer
+            out[f"WeightNorm_{i}"] = {f"Dense_{i}/kernel/scale": layer.scale}
+        out[f"Dense_{n}"] = self.out
+        return out
+
+
+class StabilizedQNet(_Stabilized):
+    """Q(s, a, w) -> R^d (reference gpi_ls_continuous_action_jax.py:83-107 QNetwork)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        reward_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        dropout_rate: float = 0.01,
+        momentum: float = 0.99,
+        members: int | None = None,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__(obs_dim + action_dim + reward_dim, reward_dim, hidden, dropout_rate, momentum, members, gen)
+
+    def forward(self, obs, action, w, train: bool = False, dropout_gen: torch.Generator | None = None):
+        return self.trunk(torch.cat([obs, action, w], dim=-1), train, dropout_gen)
+
+
+class StabilizedActor(_Stabilized):
+    """mu(s, w) -> a in [-1, 1] (reference gpi_ls_continuous_action_jax.py:56-81 Policy)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        reward_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        momentum: float = 0.99,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__(obs_dim + reward_dim, action_dim, hidden, 0.0, momentum, None, gen)
+
+    def forward(self, obs, w, train: bool = False):
+        return torch.tanh(self.trunk(torch.cat([obs, w], dim=-1), train, None))
+
+
+class DeterministicActor(nn.Module):
+    """mu(s, w) -> a in [-1, 1], ReLU MLP (TD3, reference gpi_pd_continuous_action.py:34-56)."""
+
+    def __init__(
+        self, obs_dim: int, reward_dim: int, action_dim: int, hidden: Sequence[int] = (256, 256), gen: torch.Generator | None = None
+    ):
+        super().__init__()
+        self.mlp = MLP(obs_dim + reward_dim, hidden, gen=gen)
+        self.out = dense(hidden[-1], action_dim, gen)
+
+    def forward(self, obs, w, train: bool = False):
+        return torch.tanh(self.out(self.mlp(torch.cat([obs, w], dim=-1))))
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp, "Dense_0": self.out}
+
+
+class ContinuousQNet(nn.Module):
+    """Vector critic Q(s, a, w) -> R^d, ReLU MLP (reference mosac_continuous_action.py:28-66)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        reward_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        members: int | None = None,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.mlp = MLP(obs_dim + action_dim + reward_dim, hidden, gen=gen, members=members)
+        self.out = dense(hidden[-1], reward_dim, gen) if members is None else EnsembleDense(members, hidden[-1], reward_dim, gen)
+
+    def forward(self, obs, action, w, train: bool = False, dropout_gen: torch.Generator | None = None):
+        """``train`` and ``dropout_gen`` are accepted for the stabilized critic's signature; this net has neither."""
+        return self.out(self.mlp(torch.cat([obs, action, w], dim=-1)))
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp, "Dense_0": self.out}

@@ -13,10 +13,14 @@ common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 - ``WeightConditionedQNet``: the psi-network Q(s, w) in R^{A x d} from the
   product of an obs embedding and a weight embedding; ``members`` stacks
   critics of it (the JAX package's ``ensemble``).
+- ``BatchRenorm`` and ``WeightNormDense``: the stability recipe of the
+  continuous critics (flax ``nn.WeightNorm(nn.Dense)``), each with an
+  optional ensemble axis; BatchRenorm's running statistics are buffers.
 - ``TrainState``: online net, target net and optimizer together, in place of
   flax's ``TrainState`` with ``target_params``.
 - ``polyak_update``, ``clip_grad_global_norm_``, ``huber``.
-- ``load_flax_params``: carry a flax parameter tree into a port module.
+- ``load_flax_params`` / ``load_flax_variables``: carry a flax parameter tree
+  (and a ``batch_stats`` tree) into a port module.
 
 Linear layers are initialized as flax ``nn.Dense`` is: lecun-normal weights
 (a normal truncated at two standard deviations, rescaled so the variance is
@@ -155,6 +159,86 @@ class MLP(nn.Module):
         return out
 
 
+class BatchRenorm(nn.Module):
+    """Batch Renormalization (Ioffe, 2017), as the JAX package's ``BatchRenorm``.
+
+    Train mode normalizes with the batch statistics (population variance,
+    epsilon 1e-3 under the square root), corrected toward the running ones by
+    the clipped, gradient-free factors r and d once ``steps`` exceeds
+    ``warmup_steps`` (read before this call's increment), and updates the
+    running statistics; eval mode uses the running statistics.  The running
+    statistics are buffers.  With ``members`` every statistic and parameter
+    carries a leading ensemble axis, (members, 1, features), and the input is
+    (members, B, features).
+    """
+
+    def __init__(
+        self,
+        features: int,
+        members: int | None = None,
+        momentum: float = 0.99,
+        epsilon: float = 1e-3,
+        warmup_steps: int = 100_000,
+        rmax: float = 3.0,
+        dmax: float = 5.0,
+    ):
+        super().__init__()
+        shape = (features,) if members is None else (members, 1, features)
+        self.momentum, self.epsilon, self.warmup_steps, self.rmax, self.dmax = momentum, epsilon, warmup_steps, rmax, dmax
+        self.scale = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+        self.register_buffer("mean", torch.zeros(shape))
+        self.register_buffer("var", torch.ones(shape))
+        self.register_buffer("steps", torch.zeros(() if members is None else (members, 1, 1), dtype=torch.int32))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return (x - self.mean) / torch.sqrt(self.var + self.epsilon) * self.scale + self.bias
+        b_mean = x.mean(dim=-2, keepdim=True)
+        b_var = x.var(dim=-2, unbiased=False, keepdim=True)
+        b_std = torch.sqrt(b_var + self.epsilon)
+        with torch.no_grad():
+            ra_std = torch.sqrt(self.var + self.epsilon)
+            warm = self.steps > self.warmup_steps
+            r = torch.clamp(b_std / ra_std, 1.0 / self.rmax, self.rmax)
+            d = torch.clamp((b_mean - self.mean) / ra_std, -self.dmax, self.dmax)
+            r = torch.where(warm, r, 1.0)
+            d = torch.where(warm, d, 0.0)
+        y = (x - b_mean) / b_std * r + d
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_((m * self.mean + (1.0 - m) * b_mean).reshape(self.mean.shape))
+            self.var.copy_((m * self.var + (1.0 - m) * b_var).reshape(self.var.shape))
+            self.steps.add_(1)
+        return y * self.scale + self.bias
+
+
+class WeightNormDense(nn.Module):
+    """flax ``nn.WeightNorm(nn.Dense(out))``: the kernel divided by its L2 norm
+    over the input axis (``x * rsqrt(sum x^2 + 1e-12)``), times a per-output
+    ``scale``; the bias is left alone.  ``weight`` keeps flax's layout, (in,
+    out), or (members, in, out) with ``members`` (then the output is
+    (members, B, out))."""
+
+    def __init__(self, in_features: int, out_features: int, members: int | None = None, gen: torch.Generator | None = None):
+        super().__init__()
+        lead = () if members is None else (members,)
+        self.weight = nn.Parameter(torch.empty(*lead, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(*lead, out_features))
+        self.scale = nn.Parameter(torch.ones(*lead, out_features))
+        with torch.no_grad():
+            _lecun_normal_(self.weight, in_features, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        w = w * torch.rsqrt(torch.sum(w * w, dim=-2, keepdim=True) + 1e-12) * self.scale[..., None, :]
+        if w.dim() == 2:
+            return x @ w + self.bias
+        if x.dim() == 2:
+            x = x.expand(w.shape[0], *x.shape)
+        return torch.baddbmm(self.bias[:, None, :], x, w)
+
+
 class EnvelopeQNet(nn.Module):
     """Q(s, w) -> (A, d) with concat obs||w input (reference envelope.py:33-77)."""
 
@@ -239,12 +323,23 @@ class TrainState:
 @torch.no_grad()
 def polyak_update(net: nn.Module, target_net: nn.Module, tau: float) -> None:
     """Soft target update in place: target <- tau * online + (1 - tau) * target
-    (reference networks.py:120-139); tau=1 is a hard copy."""
-    for p, tp in zip(net.parameters(), target_net.parameters()):
-        if tau >= 1.0:
-            tp.copy_(p)
+    (reference networks.py:120-139); tau=1 is a hard copy.  Float buffers
+    (BatchRenorm statistics) are averaged too, integer ones copied, as the JAX
+    package's ``_polyak_stats`` does."""
+    src, dst = list(net.parameters()), list(target_net.parameters())
+    # BatchRenorm running statistics track the same way; step counters copy hard
+    for b, tb in zip(net.buffers(), target_net.buffers()):
+        if b.is_floating_point():
+            src.append(b)
+            dst.append(tb)
         else:
-            tp.copy_(tau * p + (1.0 - tau) * tp)
+            tb.copy_(b)
+    if tau >= 1.0:
+        for s, d in zip(src, dst):
+            d.copy_(s)
+    elif dst:
+        torch._foreach_mul_(dst, 1.0 - tau)
+        torch._foreach_add_(dst, src, alpha=tau)
 
 
 @torch.no_grad()
@@ -293,13 +388,74 @@ def to_flax_params(module: nn.Module, grads: bool = False) -> dict:
         return {"kernel": np_(module.weight).T, "bias": np_(module.bias)}
     if isinstance(module, EnsembleDense):
         return {"kernel": np_(module.weight), "bias": np_(module.bias)}
-    if isinstance(module, LayerNorm):
+    if isinstance(module, WeightNormDense):
+        return {"kernel": np_(module.weight), "bias": np_(module.bias)}
+    if isinstance(module, (LayerNorm, BatchRenorm)):
         lead = module.scale.shape[:1] if module.scale.dim() == 3 else ()  # (members, 1, h) -> (members, h)
         return {"scale": np_(module.scale).reshape(*lead, -1), "bias": np_(module.bias).reshape(*lead, -1)}
-    return {
-        name: np_(child) if isinstance(child, nn.Parameter) else to_flax_params(child, grads)
-        for name, child in module.flax_layout().items()
-    }
+    out = {}
+    for name, child in module.flax_layout().items():
+        if isinstance(child, nn.Parameter):
+            out[name] = np_(child)
+        elif isinstance(child, dict):
+            out[name] = {k: np_(p) for k, p in child.items()}
+        else:
+            out[name] = to_flax_params(child, grads)
+    return out
+
+
+@torch.no_grad()
+def to_flax_variables(module: nn.Module) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of ``module`` as flax-layout numpy trees."""
+    return {"params": to_flax_params(module), "batch_stats": _stats_tree(module)}
+
+
+def _stats_tree(module) -> dict:
+    out = {}
+    for name, child in getattr(module, "flax_layout", dict)().items():
+        if isinstance(child, BatchRenorm):
+            lead = child.mean.shape[:1] if child.mean.dim() == 3 else ()
+            out[name] = {
+                "mean": child.mean.cpu().numpy().reshape(*lead, -1),
+                "var": child.var.cpu().numpy().reshape(*lead, -1),
+                "steps": child.steps.cpu().numpy().reshape(lead),
+            }
+        elif isinstance(child, nn.Module):
+            sub = _stats_tree(child)
+            if sub:
+                out[name] = sub
+    return out
+
+
+@torch.no_grad()
+def load_flax_variables(module: nn.Module, variables) -> nn.Module:
+    """Copy flax ``{"params", "batch_stats"}`` (numpy leaves) into ``module`` in
+    place: the params as ``load_flax_params`` does, and each BatchRenorm's
+    running ``mean``, ``var`` and ``steps`` (with the ensemble's leading axis)."""
+    _load(module, variables["params"], type(module).__name__)
+    stats = variables.get("batch_stats", {})
+    want = _stats_tree(module)
+    if _key_structure(stats) != _key_structure(want):
+        raise ValueError(f"batch_stats tree {_key_structure(stats)} does not fit {_key_structure(want)}")
+    _load_stats(module, stats)
+    return module
+
+
+def _key_structure(tree) -> dict:
+    """The nested key structure of a dict tree (leaves dropped)."""
+    return {k: _key_structure(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def _load_stats(module, tree) -> None:
+    for name, child in module.flax_layout().items():
+        if name not in tree:
+            continue
+        if isinstance(child, BatchRenorm):
+            for key in ("mean", "var", "steps"):
+                dst = getattr(child, key)
+                dst.copy_(torch.as_tensor(np.array(tree[name][key])).to(dst.dtype).reshape(dst.shape))
+        else:
+            _load_stats(child, tree[name])
 
 
 def _copy(dst: torch.Tensor, src, path: str) -> None:
@@ -318,7 +474,11 @@ def _load(module, tree, path: str) -> None:
         _copy(module.weight, tree["kernel"], f"{path}.kernel")
         _copy(module.bias, tree["bias"], f"{path}.bias")
         return
-    if isinstance(module, LayerNorm):
+    if isinstance(module, WeightNormDense):
+        _copy(module.weight, tree["kernel"], f"{path}.kernel")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if isinstance(module, (LayerNorm, BatchRenorm)):
         _copy(module.scale, tree["scale"], f"{path}.scale")
         _copy(module.bias, tree["bias"], f"{path}.bias")
         return
@@ -330,5 +490,10 @@ def _load(module, tree, path: str) -> None:
     for name, child in layout.items():
         if isinstance(child, nn.Parameter):
             _copy(child.data, tree[name], f"{path}.{name}")
+        elif isinstance(child, dict):  # flax WeightNorm: {"Dense_i/kernel/scale": scale}
+            if set(tree[name]) != set(child):
+                raise ValueError(f"{path}.{name}: flax tree has {sorted(tree[name])}, module has {sorted(child)}")
+            for key, p in child.items():
+                _copy(p.data, tree[name][key], f"{path}.{name}.{key}")
         else:
             _load(child, tree[name], f"{path}.{name}")

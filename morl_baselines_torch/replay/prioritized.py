@@ -65,3 +65,13 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         self.priorities[idx] = p
         self.max_priority = torch.maximum(self.max_priority, p.max())
         return self
+
+    def reset_priorities(self, value: float = 1.0) -> "PrioritizedReplayBuffer":
+        """Uniform priority ``value`` on the valid rows, 0 on the rest, and the
+        running max set to ``value`` (GPI-PD continuous on a new task weight,
+        reference gpi_pd.py:619-660)."""
+        self.priorities = torch.where(
+            torch.arange(self.capacity, device=self.priorities.device) < self.size, value, 0.0
+        ).to(torch.float32)
+        self.max_priority = torch.full((), value, dtype=torch.float32, device=self.priorities.device)
+        return self

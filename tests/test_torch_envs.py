@@ -171,3 +171,43 @@ def test_registry_and_sell_cycle():
     assert bool(out.terminated)
     r = out.reward[0]
     assert r[0] > 0 and r[1] > 0 and r[2] < 0
+
+
+@pytest.mark.parametrize("env_id", ["water-reservoir-v0", "mo-mountaincar-v0", "mo-mountaincarcontinuous-v0"])
+def test_continuous_slice_env_step_parity(env_id):
+    """Water reservoir (its inflow normals read off the JAX keys) and both
+    mountain cars on random states and actions, truncation included."""
+    from morl_baselines_tpu.envs.mountaincar import MCState as JMCState
+    from morl_baselines_tpu.envs.water_reservoir import DamState as JDamState
+    from morl_baselines_torch.envs.mountaincar import MCState
+    from morl_baselines_torch.envs.water_reservoir import DamState
+
+    rng = np.random.default_rng(3)
+    n = 400
+    jenv, tenv = jmake(env_id), make(env_id)
+    t = rng.integers(tenv.max_episode_steps - 5, tenv.max_episode_steps, size=n).astype(np.int32)
+    if env_id == "water-reservoir-v0":
+        st = dict(storage=rng.uniform(0, 300, size=n).astype(np.float32), t=t)
+        jcls, tcls = JDamState, DamState
+    else:
+        pos = rng.uniform(-1.2, 0.6, size=n).astype(np.float32)
+        pos[: n // 4] = rng.uniform(0.4, 0.6, size=n // 4)  # near the goal
+        pos[n // 4 : n // 2] = rng.uniform(-1.2, -1.15, size=n // 4)  # at the left wall
+        st = dict(position=pos, velocity=rng.uniform(-0.07, 0.07, size=n).astype(np.float32), t=t)
+        jcls, tcls = JMCState, MCState
+    if env_id == "mo-mountaincar-v0":
+        actions = rng.integers(0, 3, size=n)
+        jactions = jnp.asarray(actions, jnp.int32)
+    else:
+        actions = rng.uniform(-1.5, 1.5, size=(n, 1)).astype(np.float32)
+        jactions = jnp.asarray(actions)
+    keys = jax.random.split(jax.random.key(5), n)
+    jout = jax.vmap(jenv.step)(jcls(**{k: jnp.asarray(v) for k, v in st.items()}), jactions, keys)
+    noise = None
+    if env_id == "water-reservoir-v0":
+        noise = torch.as_tensor(np.array(jax.vmap(lambda k: jax.random.normal(k, ()))(keys)))
+    tout = tenv.step(tcls(**{k: torch.as_tensor(v) for k, v in st.items()}), torch.as_tensor(actions), noise)
+    _assert_step_equal(jout, tout)
+    assert tout.truncated.any() and not tout.truncated.all()
+    if "mountaincar" in env_id:
+        assert tout.terminated.any() and not tout.terminated.all()

@@ -2,8 +2,8 @@
 
 Every module of ``morl_baselines_torch`` and ``chip_smoke.py`` is imported in a
 fresh interpreter, which must then hold no ``jax``, ``flax``, ``optax``,
-``orbax`` or ``morl_baselines_tpu`` module.  An entry point given no device
-asks for CUDA and raises where there is none.
+``orbax``, ``mujoco``, ``gymnasium`` or ``morl_baselines_tpu`` module.  An
+entry point given no device asks for CUDA and raises where there is none.
 """
 
 import json
@@ -15,7 +15,18 @@ import sys
 import pytest
 import torch
 
-from morl_baselines_torch.agents import GPILS, GPIPD, Envelope, EnvelopeConfig, GPILSConfig, GPIPDConfig
+from morl_baselines_torch.agents import (
+    GPILS,
+    GPIPD,
+    Envelope,
+    EnvelopeConfig,
+    GPILSConfig,
+    GPILSContinuous,
+    GPILSContinuousConfig,
+    GPIPDConfig,
+    GPIPDContinuous,
+    GPIPDContinuousConfig,
+)
 from morl_baselines_torch.core import DeviceParetoFront
 from morl_baselines_torch.envs import make
 
@@ -29,7 +40,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "morl_baselines_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "mujoco", "gymnasium", "morl_baselines_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(json.dumps({"modules": len(names), "leaked": leaked}))
 """
@@ -66,3 +77,20 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
         agent = cls(make("minecart-v0"), config, device="cpu")
         state = agent.init_state()
         assert agent.device.type == "cpu" and (state.base if cls is GPIPD else state).obs.device.type == "cpu"
+
+
+def test_continuous_entry_points_need_cuda_by_default(monkeypatch):
+    """The planar envs (their constants live on a device) and the continuous
+    agents ask for CUDA unless told otherwise, and raise without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for env_id in ("mo-hopper-jx-v5", "mo-halfcheetah-jx-v5"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(env_id)
+    cfg = dict(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,), max_support=4)
+    for cls, config in ((GPILSContinuous, GPILSContinuousConfig(**cfg)), (GPIPDContinuous, GPIPDContinuousConfig(**cfg))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(make("water-reservoir-v0"), config)
+        agent = cls(make("mo-hopper-jx-v5", device="cpu"), config, device="cpu")
+        state = agent.init_state()
+        base = state.base if cls is GPIPDContinuous else state
+        assert agent.device.type == "cpu" and base.obs.device.type == "cpu" and base.obs.shape == (4, 11)
