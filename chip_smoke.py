@@ -29,7 +29,15 @@ support) through ``train_segment`` and ``GPILSContinuous.train``, and
 GPI-PD continuous through ``GPIPDContinuous.train`` (PER, Dyna with the
 default 5-member ensemble fit to convergence, 512 rollout starts of 5
 steps), on ``mo-hopper-jx-v5`` with 500-step episodes; each front is
-scored on the card.  Every path is driven with the kernel's launch count
+scored on the card.  Then the populations on ``mo-halfcheetah-jx-v5``:
+``[pgmorl_iter]`` times the vectorized PGMORL iteration at the accelerator
+config of ``bench.py::bench_pgmorl_halfcheetah`` (6 MOPPO workers of 64
+envs, 8192 steps, 10 epochs of 32 minibatches) and ``[pgmorl_train]`` runs
+``PGMORL.train`` through one task-weight selection; ``[morld_step]`` times
+the vectorized MORL/D round of ``bench.py::bench_morld_halfcheetah`` (6
+MOSAC members of 256 envs, 32 iterations, 5 cooperation passes) and
+``[morld_train]`` runs ``MORLD.train`` for 2 rounds with PSA; both archive
+fronts are scored on the card.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
 second-to-last line is a JSON record of the kernels, the last line
@@ -52,6 +60,8 @@ import torch
 from morl_baselines_torch.agents import (
     GPILS,
     GPIPD,
+    MORLD,
+    PGMORL,
     Envelope,
     EnvelopeConfig,
     GPILSConfig,
@@ -60,6 +70,11 @@ from morl_baselines_torch.agents import (
     GPIPDConfig,
     GPIPDContinuous,
     GPIPDContinuousConfig,
+    MOPPO,
+    MOPPOConfig,
+    MORLDConfig,
+    MOSACConfig,
+    PGMORLConfig,
 )
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import make
@@ -115,6 +130,25 @@ GPIPD_CONT_CONFIG = GPIPDContinuousConfig(
 CONT_STEPS_PER_ITER = 4 * CONT_ENVS
 HOPPER_REF_POINT = np.array([-100.0, -100.0, -100.0])  # examples/gpi_pd_hopper.py
 HOPPER_EPISODE_STEPS = 500  # examples/gpi_pd_hopper.py; the evaluations run up to this many steps
+
+# bench.py::bench_pgmorl_halfcheetah on an accelerator (bench.py:138-146): 6 PPO workers of 64 envs, 8192
+# steps per iteration (128 rollout steps), 10 epochs of 32 minibatches, tanh MLPs of (64, 64)
+POP = 6
+PGMORL_CONFIG = PGMORLConfig(
+    pop_size=POP, warmup_iterations=1, evolutionary_iterations=1, vectorized=True,
+    ppo=MOPPOConfig(num_envs=64, steps_per_iteration=8192),
+)
+PGMORL_ORIGIN = np.array([0.0, -5.0])  # examples/pgmorl_halfcheetah.py
+# bench.py::bench_morld_halfcheetah on an accelerator (bench.py:162-177): 6 MOSAC members of 256 envs,
+# learning_starts 256, buffer 16384, batch 256, (256, 256), 32 iterations a round, 5 cooperation passes
+MORLD_ENVS, MORLD_SEG_ITERS = 256, 32
+MORLD_CONFIG = MORLDConfig(
+    pop_size=POP, vectorized=True, exchange_every=MORLD_SEG_ITERS * MORLD_ENVS, weight_adaptation_method="PSA",
+    sac=MOSACConfig(num_envs=MORLD_ENVS, learning_starts=MORLD_ENVS, buffer_size=16384),
+)
+# the repo's halfcheetah protocol (scripts/parity.py::pgmorl_halfcheetah, morld_halfcheetah; examples/morld_cheetah.py)
+CHEETAH_REF_POINT = np.array([-100.0, -100.0])
+POP_EVAL_STEPS = 100  # the population evaluations' episodes, cut from the env's 1000 steps
 
 
 def log(msg: str) -> None:
@@ -358,14 +392,18 @@ def phase_train_segment(smi: str) -> None:
     profile_window(lambda: agent.train_segment(state, 3), "3 iters")
 
 
-def profile_window(fn, what: str) -> dict | None:
+def profile_window(fn, what: str, cpu: bool = True) -> dict | None:
     """Device busy share and the costliest kernels over one call of ``fn``;
-    returns {busy_ms, wall_ms, launches}, or None when the trace holds no device time."""
+    returns {busy_ms, wall_ms, launches}, or None when the trace holds no device time.
+    ``cpu=False`` traces the device alone, for a window of hundreds of
+    thousands of launches where the host's operator events would cost more
+    than the window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
@@ -413,19 +451,20 @@ def phase_train_and_score() -> None:
 
 
 def score_on_card(front_np: np.ndarray, host: dict, ref_point: np.ndarray) -> int:
-    """Score a (32, 3) front on the card with ``device_front_metrics`` (at the
-    env's ``ref_point``) and ``DeviceParetoFront.add``, hold the device
-    cardinality, EUM and archive against the host's, and return the kernel's
-    launches."""
-    if front_np.shape != (32, 3) or not np.isfinite(front_np).all():
+    """Score an (n, d) front on the card with ``device_front_metrics`` (at the
+    env's ``ref_point``, against 32 equally spaced weights) and
+    ``DeviceParetoFront.add``, hold the device cardinality, EUM and archive
+    against the host's, and return the kernel's launches."""
+    n, d = front_np.shape
+    if n == 0 or d != len(ref_point) or not np.isfinite(front_np).all():
         raise AssertionError(f"bad front {front_np.shape}")
 
     before = non_dominated_mask_cuda.launches
     front = torch.as_tensor(front_np, dtype=torch.float32, device="cuda")
-    valid = torch.ones(32, dtype=torch.bool, device="cuda")
-    weights = torch.as_tensor(equally_spaced_weights(3, 32), dtype=torch.float32, device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    weights = torch.as_tensor(equally_spaced_weights(d, 32), dtype=torch.float32, device="cuda")
     dev = device_front_metrics(front, valid, torch.as_tensor(ref_point, dtype=torch.float32, device="cuda"), weights)
-    archive = DeviceParetoFront.create(64, 3).add(front)
+    archive = DeviceParetoFront.create(max(64, 2 * n), d).add(front)
     torch.cuda.synchronize()
     launched = non_dominated_mask_cuda.launches - before
     if launched < 2:
@@ -435,11 +474,13 @@ def score_on_card(front_np: np.ndarray, host: dict, ref_point: np.ndarray) -> in
         raise AssertionError(f"device cardinality {card} != host {host['eval/cardinality']}")
     if not math.isclose(eum, host["eval/eum"], rel_tol=1e-5, abs_tol=1e-7):
         raise AssertionError(f"device eum {eum} != host {host['eval/eum']}")
+    if d == 2 and not math.isclose(float(dev["eval/hypervolume"]), host["eval/hypervolume"], rel_tol=1e-5, abs_tol=1e-6):
+        raise AssertionError(f"device hypervolume {float(dev['eval/hypervolume'])} != host {host['eval/hypervolume']}")
     distinct = filter_pareto_dominated(front_np.astype(np.float64), keep_duplicates=False)
     got = archive.values[archive.valid].cpu().numpy()
     if len(got) != len(distinct) or not np.array_equal(np.unique(got, axis=0), np.unique(distinct.astype(np.float32), axis=0)):
         raise AssertionError(f"device archive {got} != host front {distinct}")
-    log(f"[score] device eval/cardinality={card:g} eval/eum={eum:.6g} (host {host['eval/eum']:.6g}); "
+    log(f"[score] {n} x {d} front: device eval/cardinality={card:g} eval/eum={eum:.6g} (host {host['eval/eum']:.6g}); "
         f"archive holds {len(got)} points; kernel launched {launched} times")
     return launched
 
@@ -699,6 +740,130 @@ def phase_gpipd_cont_train(smi: str) -> int:
     return score_on_card(agent._last_front, host, HOPPER_REF_POINT)
 
 
+def phase_pgmorl_iter(smi: str) -> None:
+    """The vectorized PGMORL iteration at bench.py's accelerator config (the
+    counterpart of ``_train_all_vec``): every worker's rollout, GAE and 320
+    minibatch steps in one pass over the member axis.  One warm-up
+    iteration, 2 timed, then a profiled window of rollout and minibatch
+    steps, scaled to the iteration."""
+    agent = PGMORL(make("mo-halfcheetah-jx-v5"), origin=PGMORL_ORIGIN, config=PGMORL_CONFIG)
+    proto, spi = agent.agents[0], PGMORL_CONFIG.ppo.steps_per_iteration
+    state = proto.init_state(list(range(POP)))
+    ws = agent._weights()
+    proto.train_iteration(state, ws)
+    torch.cuda.synchronize()
+    iters = 2
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = proto.train_iteration(state, ws)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if state.global_step != (iters + 1) * spi or not _params_finite(state.net) or not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"global_step {state.global_step}, or non-finite params or loss {loss.tolist()}")
+    ppo = PGMORL_CONFIG.ppo
+    log(f"[pgmorl_iter] mo-halfcheetah pop={POP} num_envs={ppo.num_envs} steps_per_iteration={spi} "
+        f"epochs={ppo.update_epochs} minibatches={ppo.num_minibatches} hidden={ppo.hidden}: {1e3 * dt / iters:.1f} ms/iteration, "
+        f"{iters * POP * spi / dt:.0f} env-steps/s, losses {[round(x, 4) for x in loss.tolist()]} [{smi}]")
+    # the profile reads a window of the same loop, scaled to the iteration: prof_steps rollout steps
+    # (with their GAE) by an agent that differs from proto in steps_per_iteration alone, then
+    # prof_mb minibatch steps of the iteration's minibatch size on that rollout
+    prof_steps, prof_mb = 8, 16
+    short = MOPPO(proto.env, proto.w.cpu().numpy(), dataclasses.replace(ppo, steps_per_iteration=prof_steps * ppo.num_envs),
+                  device=proto.device)
+    batch = []
+    roll = profile_window(lambda: batch.append(short.rollout(state, ws)), f"pgmorl {prof_steps} rollout steps")
+    mb, rows = spi // ppo.num_minibatches, prof_steps * ppo.num_envs
+    idx = torch.argsort(torch.rand((POP, rows), device=state.gen.device), dim=1)[:, :mb]
+    upd = profile_window(lambda: [proto.minibatch_step(state, batch[0], idx) for _ in range(prof_mb)],
+                         f"pgmorl {prof_mb} minibatch steps")
+    if roll and upd:
+        k_roll, k_mb = spi // ppo.num_envs / prof_steps, ppo.update_epochs * ppo.num_minibatches / prof_mb
+        busy_ms = k_roll * roll["busy_ms"] + k_mb * upd["busy_ms"]
+        launches = round(k_roll * roll["launches"] + k_mb * upd["launches"])
+        log(f"[pgmorl_iter] scaled to the iteration (rollout x{k_roll:g}, minibatch steps x{k_mb:g}): device busy "
+            f"{busy_ms:.2f} ms = {100 * busy_ms * iters / (1e3 * dt):.1f}% of the timed iteration; {launches} launches an iteration")
+
+
+def phase_pgmorl_train(smi: str) -> int:
+    """``PGMORL.train`` vectorized: the first evaluation, a warm-up iteration,
+    an evaluation, one task-weight selection, an evolutionary iteration and an
+    evaluation (18 episodes of ``POP_EVAL_STEPS`` steps each); the archive front scored on the card."""
+    agent = PGMORL(make("mo-halfcheetah-jx-v5"), origin=PGMORL_ORIGIN, config=PGMORL_CONFIG)
+    timer = PhaseTimer()
+    for name in ("_eval_all_vec", "_task_weight_selection"):
+        timer.wrap(agent, name)
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=2 * POP * PGMORL_CONFIG.ppo.steps_per_iteration, ref_point=CHEETAH_REF_POINT,
+                        eval_max_steps=POP_EVAL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(timer.calls.get("_task_weight_selection", [])) != 1 or len(timer.calls["_eval_all_vec"]) != 3:
+        raise AssertionError(f"phases run: { {k: len(v) for k, v in timer.calls.items()} }")
+    if not len(agent.archive) or not _params_finite(state.net):
+        raise AssertionError(f"archive of {len(agent.archive)}, or non-finite params")
+    host = agent._last_metrics
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
+    log(f"[pgmorl_train] PGMORL.train {agent.global_step} steps in {wall:.2f} s; {each}; archive of {len(agent.archive)}, "
+        f"weights {[[round(x, 3) for x in a.w.tolist()] for a in agent.agents]}; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host, CHEETAH_REF_POINT)
+
+
+def phase_morld_step(smi: str) -> None:
+    """The vectorized MORL/D round at bench.py's accelerator config
+    (``_pop_step``): 32 act-step-store-update iterations of all 6 members, then
+    5 neighbour-batch cooperation passes.  One warm-up round, 2 timed, one profiled."""
+    algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+    agent = algo.population[0]
+    state, buffer = agent.init_state(list(range(POP))), agent.make_buffer(POP)
+    weights = torch.as_tensor(np.stack(algo.weights), device=agent.device)
+    step = lambda: algo._pop_step(state, buffer, weights, MORLD_SEG_ITERS, MORLD_CONFIG.update_passes)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    rounds = 2
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = (rounds + 1) * MORLD_SEG_ITERS
+    if state.iter_count != n or buffer.size != min(n * MORLD_ENVS, buffer.capacity):
+        raise AssertionError(f"iter_count {state.iter_count}, buffer size {buffer.size}")
+    if not all(_params_finite(net) for net in (state.actor, state.critic.net, state.critic.target_net)):
+        raise AssertionError("non-finite actor or critic params")
+    log(f"[morld_step] mo-halfcheetah pop={POP} num_envs={MORLD_ENVS} hidden={MORLD_CONFIG.sac.hidden} "
+        f"batch={MORLD_CONFIG.sac.batch_size} seg_iters={MORLD_SEG_ITERS} update_passes={MORLD_CONFIG.update_passes}: "
+        f"{1e3 * dt / rounds:.1f} ms/round, {rounds * POP * MORLD_SEG_ITERS * MORLD_ENVS / dt:.0f} env-steps/s, "
+        f"alpha {[round(x, 4) for x in state.log_alpha.detach().exp().tolist()]} [{smi}]")
+    prof = profile_window(step, "morld 1 round", cpu=False)
+    if prof:
+        log(f"[morld_step] device busy {prof['busy_ms']:.2f} ms = {100 * prof['busy_ms'] * rounds / (1e3 * dt):.1f}% "
+            f"of the timed round; {prof['launches']} launches a round")
+
+
+def phase_morld_train(smi: str) -> int:
+    """``MORLD.train`` vectorized: 2 rounds with the neighbour transfer after
+    the first, PSA, each round's 18 evaluation episodes of ``POP_EVAL_STEPS``
+    steps; the archive front scored on the card."""
+    algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+    timer = PhaseTimer()
+    timer.wrap(algo, "_pop_step")
+    timer.wrap(algo.population[0], "policy_eval")
+    t0 = time.perf_counter()
+    state = algo.train(total_timesteps=2 * POP * MORLD_SEG_ITERS * MORLD_ENVS, ref_point=CHEETAH_REF_POINT,
+                       eval_max_steps=POP_EVAL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(timer.calls["_pop_step"]) != 2 or not len(algo.archive) or not _params_finite(state.actor):
+        raise AssertionError(f"rounds {len(timer.calls['_pop_step'])}, archive of {len(algo.archive)}, or non-finite params")
+    host = algo._last_metrics
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
+    log(f"[morld_train] MORLD.train {2 * POP * MORLD_SEG_ITERS * MORLD_ENVS} steps in {wall:.2f} s; {each}; "
+        f"archive of {len(algo.archive)}, weights {[[round(float(x), 3) for x in w] for w in algo.weights]}; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(algo._last_front, host, CHEETAH_REF_POINT)
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -755,6 +920,8 @@ def main() -> int:
         "gpipd": lambda: phase_gpipd_train(smi),
         "gpils_cont": lambda: (phase_gpils_cont_segment(smi), phase_gpils_cont_train(smi)),
         "gpipd_cont": lambda: phase_gpipd_cont_train(smi),
+        "pgmorl": lambda: (phase_pgmorl_iter(smi), phase_pgmorl_train(smi)),
+        "morld": lambda: (phase_morld_step(smi), phase_morld_train(smi)),
     }
     launches_by_path = {}
     for name, drive in paths.items():
@@ -780,7 +947,7 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a Pareto mask
-        "at": "N=96 d=3 keep_duplicates=False (DeviceParetoFront.add on every path's scoring step)",
+        "at": "N=96 d=3 keep_duplicates=False (DeviceParetoFront.add on the scoring steps)",
         "sizes": timed,
         "archive_add": archive,
     }

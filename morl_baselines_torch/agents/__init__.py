@@ -1,4 +1,4 @@
-"""Algorithm suite (ported so far: Envelope, GPI-LS, GPI-PD, and continuous GPI-LS and GPI-PD)."""
+"""Algorithm suite (ported so far: Envelope, GPI-LS, GPI-PD, continuous GPI-LS and GPI-PD, MOPPO, PGMORL, continuous MOSAC and MORL/D)."""
 
 from .base import MOAgentBase
 from .envelope import Envelope, EnvelopeConfig, EnvelopeState
@@ -6,6 +6,10 @@ from .gpils import GPILS, GPILSConfig, GPILSState
 from .gpils_continuous import GPILSContinuous, GPILSContinuousConfig, GPILSContState
 from .gpipd import GPIPD, GPIPDConfig, GPIPDState
 from .gpipd_continuous import GPIPDContinuous, GPIPDContinuousConfig, GPIPDContState
+from .moppo import MOPPO, MOPPOConfig, MOPPONet, MOPPOState
+from .morld import MORLD, MORLDConfig
+from .mosac import MOSAC, MOSACConfig, MOSACState
+from .pgmorl import PGMORL, PGMORLConfig
 
 __all__ = [
     "Envelope",
@@ -24,4 +28,15 @@ __all__ = [
     "GPIPDContinuousConfig",
     "GPIPDState",
     "MOAgentBase",
+    "MOPPO",
+    "MOPPOConfig",
+    "MOPPONet",
+    "MOPPOState",
+    "MORLD",
+    "MORLDConfig",
+    "MOSAC",
+    "MOSACConfig",
+    "MOSACState",
+    "PGMORL",
+    "PGMORLConfig",
 ]

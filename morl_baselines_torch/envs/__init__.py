@@ -6,7 +6,7 @@ from .minecart import Minecart
 from .mountaincar import MOMountainCar, MOMountainCarContinuous
 from .planar import MOHalfCheetahJX, MOHopperJX, PlanarState
 from .registry import ENV_REGISTRY, make
-from .vector import EpisodeStats, VecStepOut, VectorMOEnv
+from .vector import EpisodeStats, RewardNormState, VecStepOut, VectorMOEnv, normalize_reward
 from .water_reservoir import WaterReservoir
 
 __all__ = [
@@ -22,9 +22,11 @@ __all__ = [
     "MOMountainCarContinuous",
     "Minecart",
     "PlanarState",
+    "RewardNormState",
     "StepOut",
     "VecStepOut",
     "VectorMOEnv",
     "WaterReservoir",
     "make",
+    "normalize_reward",
 ]

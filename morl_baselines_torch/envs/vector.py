@@ -95,3 +95,62 @@ class EpisodeStats(NamedTuple):
             gamma_pow=torch.where(done, 1.0, self.gamma_pow * gamma),
         )
         return nxt, finished
+
+
+# ---------------------------------------------------------------------------
+# Reward normalization / clipping (functional MONormalizeReward / MOClipReward)
+# ---------------------------------------------------------------------------
+
+
+class RewardNormState(NamedTuple):
+    """Per-objective running stats of discounted return (gymnasium semantics).
+
+    Leading axes (a population's member axis) come before the env axis:
+    mean and var (..., d), count (...), returns (..., N, d).
+    """
+
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: torch.Tensor
+    returns: torch.Tensor
+
+    @staticmethod
+    def create(num_envs: int, reward_dim: int, device, lead: tuple = ()) -> "RewardNormState":
+        return RewardNormState(
+            mean=torch.zeros((*lead, reward_dim), device=device),
+            var=torch.ones((*lead, reward_dim), device=device),
+            count=torch.full(lead, 1e-4, device=device),
+            returns=torch.zeros((*lead, num_envs, reward_dim), device=device),
+        )
+
+
+def normalize_reward(
+    state: RewardNormState,
+    reward: torch.Tensor,
+    done: torch.Tensor,
+    gamma: float,
+    eps: float = 1e-8,
+    clip: float | None = None,
+):
+    """Normalize vector rewards (..., N, d) by the std of their discounted returns.
+
+    Per-objective version of gymnasium's NormalizeReward, as MO-Gymnasium's
+    MONormalizeReward does for one chosen index (reference mo_ppo.py:133-136
+    applies it per objective).  The return accumulator is reset by this
+    step's own ``done`` (..., N).  The statistics are over the env axis, the
+    population variance (ddof 0).  Optionally clip (MOClipReward).
+    """
+    returns = state.returns * gamma * (1.0 - done.to(torch.float32))[..., None] + reward
+    batch_mean = returns.mean(dim=-2)
+    batch_var = returns.var(dim=-2, correction=0)
+    batch_count = returns.shape[-2]
+    count = state.count[..., None]
+    delta = batch_mean - state.mean
+    tot = count + batch_count
+    new_mean = state.mean + delta * batch_count / tot
+    m2 = state.var * count + batch_var * batch_count + delta**2 * count * batch_count / tot
+    new_var = m2 / tot
+    normed = reward / torch.sqrt(new_var + eps)[..., None, :]
+    if clip is not None:
+        normed = torch.clamp(normed, -clip, clip)
+    return RewardNormState(new_mean, new_var, state.count + batch_count, returns), normed

@@ -1,12 +1,16 @@
-"""Continuous-control actors and critics, weight-conditioned (TD3 family), on torch.
+"""Continuous-control actors and critics (TD3 and SAC families), on torch.
 
-PyTorch port of the TD3 nets of ``morl_baselines_tpu/models/continuous.py``
-(reference gpi_pd_continuous_action.py:34-73, gpi_ls_continuous_action_jax.py:56-107):
+PyTorch port of the TD3 and SAC nets of ``morl_baselines_tpu/models/continuous.py``
+(reference gpi_pd_continuous_action.py:34-73, gpi_ls_continuous_action_jax.py:56-107,
+mosac_continuous_action.py:28-115):
 
 - ``StabilizedQNet``: Q(s, a, w) -> R^d with BatchRenorm between layers,
   WeightNorm dense layers, dropout and leaky-relu (slope 0.01);
 - ``StabilizedActor``: mu(s, w) in [-1, 1]^A with the same recipe, no dropout;
-- ``DeterministicActor`` and ``ContinuousQNet``: the plain ReLU versions.
+- ``DeterministicActor`` and ``ContinuousQNet``: the plain ReLU versions;
+  ``ContinuousQNet(weight_conditioned=False)`` is MOSAC's Q(s, a) critic;
+- ``SquashedGaussianActor``: MOSAC's tanh-squashed Gaussian policy, with
+  ``members`` for a population (outputs (members, B, A)).
 
 The layer order is the JAX package's.  ``train=True`` normalizes with batch
 statistics and updates the BatchRenorm running statistics; dropout runs only
@@ -18,11 +22,15 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .networks import MLP, BatchRenorm, EnsembleDense, WeightNormDense, dense, dropout
+
+LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
+_LOG_2PI = float(np.log(2 * np.pi))
 
 
 class _Stabilized(nn.Module):
@@ -125,7 +133,10 @@ class DeterministicActor(nn.Module):
 
 
 class ContinuousQNet(nn.Module):
-    """Vector critic Q(s, a, w) -> R^d, ReLU MLP (reference mosac_continuous_action.py:28-66)."""
+    """Vector critic Q(s, a[, w]) -> R^d, ReLU MLP (reference mosac_continuous_action.py:28-66).
+
+    ``weight_conditioned=False`` drops w from the input: MOSAC's per-policy
+    critics, each policy with a fixed weight."""
 
     def __init__(
         self,
@@ -135,14 +146,60 @@ class ContinuousQNet(nn.Module):
         hidden: Sequence[int] = (256, 256),
         members: int | None = None,
         gen: torch.Generator | None = None,
+        weight_conditioned: bool = True,
     ):
         super().__init__()
-        self.mlp = MLP(obs_dim + action_dim + reward_dim, hidden, gen=gen, members=members)
+        self.weight_conditioned = weight_conditioned
+        in_features = obs_dim + action_dim + (reward_dim if weight_conditioned else 0)
+        self.mlp = MLP(in_features, hidden, gen=gen, members=members)
         self.out = dense(hidden[-1], reward_dim, gen) if members is None else EnsembleDense(members, hidden[-1], reward_dim, gen)
 
-    def forward(self, obs, action, w, train: bool = False, dropout_gen: torch.Generator | None = None):
+    def forward(self, obs, action, w=None, train: bool = False, dropout_gen: torch.Generator | None = None):
         """``train`` and ``dropout_gen`` are accepted for the stabilized critic's signature; this net has neither."""
-        return self.out(self.mlp(torch.cat([obs, action, w], dim=-1)))
+        x = torch.cat([obs, action, w] if self.weight_conditioned else [obs, action], dim=-1)
+        return self.out(self.mlp(x))
 
     def flax_layout(self) -> dict:
         return {"MLP_0": self.mlp, "Dense_0": self.out}
+
+
+class SquashedGaussianActor(nn.Module):
+    """pi(a|s): tanh-squashed Gaussian (reference mosac_continuous_action.py:69-115).
+
+    ReLU trunk, then a mean head and a log-std head; the log-std is squashed
+    into [LOG_STD_MIN, LOG_STD_MAX] through tanh.  With ``members`` the input
+    is (members, B, obs_dim) (or (B, obs_dim), shared) and the outputs are
+    (members, B, A).
+    """
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        members: int | None = None,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.mlp = MLP(obs_dim, hidden, gen=gen, members=members)
+        head = (lambda: dense(hidden[-1], action_dim, gen)) if members is None else (
+            lambda: EnsembleDense(members, hidden[-1], action_dim, gen)
+        )
+        self.mean, self.log_std = head(), head()
+
+    def forward(self, obs):
+        x = self.mlp(obs)
+        log_std = torch.tanh(self.log_std(x))
+        return self.mean(x), LOG_STD_MIN + 0.5 * (LOG_STD_MAX - LOG_STD_MIN) * (log_std + 1.0)
+
+    @staticmethod
+    def sample(mean: torch.Tensor, log_std: torch.Tensor, eps: torch.Tensor):
+        """Reparameterized tanh-Gaussian sample from standard normals ``eps``
+        (mean's shape) and its log-prob, in the eps form, with the squash
+        correction log(max(1 - a^2, 1e-6))."""
+        a = torch.tanh(mean + torch.exp(log_std) * eps)
+        logp = -0.5 * (eps**2 + 2 * log_std + _LOG_2PI) - torch.log(torch.clamp(1 - a**2, min=1e-6))
+        return a, logp.sum(dim=-1)
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp, "Dense_0": self.mean, "Dense_1": self.log_std}

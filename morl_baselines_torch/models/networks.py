@@ -3,8 +3,8 @@
 PyTorch port of ``morl_baselines_tpu/models/networks.py`` (reference
 common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 
-- ``MLP``: ReLU trunk with an optional linear output layer, dropout and
-  LayerNorm options, and an optional ensemble axis (``members``).
+- ``MLP``: ReLU (or tanh) trunk with an optional linear output layer,
+  dropout and LayerNorm options, and an optional ensemble axis (``members``).
 - ``EnsembleDense``: ``members`` Dense layers stacked on a leading axis and
   computed as one batched GEMM (``torch.baddbmm``), in place of flax's
   ``nn.vmap`` over unshared params.
@@ -19,6 +19,10 @@ common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 - ``TrainState``: online net, target net and optimizer together, in place of
   flax's ``TrainState`` with ``target_params``.
 - ``polyak_update``, ``clip_grad_global_norm_``, ``huber``.
+- For a population on a leading member axis: ``stack_members`` (each
+  member's init from its own seed), ``gather_members_``,
+  ``clip_grad_global_norm_members_`` (one clip per member) and
+  ``MemberAdam`` (Adam with a step count per member).
 - ``load_flax_params`` / ``load_flax_variables``: carry a flax parameter tree
   (and a ``batch_stats`` tree) into a port module.
 
@@ -102,6 +106,9 @@ class LayerNorm(nn.Module):
         return y * self.scale + self.bias
 
 
+_ACTS = {"relu": torch.relu, "tanh": torch.tanh}
+
+
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept by 1/(1 - rate).
     The mask is drawn from ``gen``, so every element (every critic) draws its own."""
@@ -110,12 +117,13 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
 
 
 class MLP(nn.Module):
-    """ReLU MLP trunk (reference networks.py:10-48); output_dim None returns
-    the last hidden features.
+    """MLP trunk (reference networks.py:10-48); output_dim None returns the
+    last hidden features.
 
-    Each hidden layer is Dense -> Dropout -> LayerNorm -> ReLU, the last two
-    as the options ask.  Dropout runs only when the forward is given a
-    generator (flax ``deterministic=False``).  With ``members`` every layer
+    Each hidden layer is Dense -> Dropout -> LayerNorm -> activation (ReLU,
+    or "tanh" for MOPPO's nets), the middle two as the options ask.  Dropout
+    runs only when the forward is given a generator (flax
+    ``deterministic=False``).  With ``members`` every layer
     carries a leading ensemble axis and the output is (members, B, ...).
     """
 
@@ -128,8 +136,10 @@ class MLP(nn.Module):
         dropout_rate: float = 0.0,
         use_layernorm: bool = False,
         members: int | None = None,
+        activation: str = "relu",
     ):
         super().__init__()
+        self.act = _ACTS[activation]
         sizes = [in_features, *hidden] + ([output_dim] if output_dim is not None else [])
         if members is None:
             self.layers = nn.ModuleList(dense(a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
@@ -149,7 +159,7 @@ class MLP(nn.Module):
                     x = dropout(x, self.dropout_rate, dropout_gen)
                 if self.norms is not None:
                     x = self.norms[i](x)
-                x = torch.relu(x)
+                x = self.act(x)
         return x if dtype is None else x.float()
 
     def flax_layout(self) -> dict:
@@ -354,6 +364,98 @@ def clip_grad_global_norm_(params, max_norm: float) -> None:
         g.mul_(scale)
 
 
+def _lead(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (P,) tensor viewed to broadcast against ``like`` (P, ...)."""
+    return x.reshape(x.shape[0], *([1] * (like.dim() - 1)))
+
+
+@torch.no_grad()
+def clip_grad_global_norm_members_(params, max_norm: float) -> None:
+    """``clip_grad_global_norm_`` once per member: every tensor of ``params``
+    carries the member axis first, and member p's grads are scaled by its own
+    global norm, so one member's large gradient rescales no other member
+    (``optax.clip_by_global_norm`` under ``jax.vmap``)."""
+    grads = [p.grad for p in params]
+    sq = sum(torch.sum(g * g, dim=tuple(range(1, g.dim()))) if g.dim() > 1 else g * g for g in grads)
+    norm = torch.sqrt(sq)
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(_lead(scale, g))
+
+
+@torch.no_grad()
+def stack_members(make, seeds, per_seed: int = 1) -> nn.Module:
+    """A population net: ``make(members, gen)`` for ``len(seeds) * per_seed``
+    members, whose block p holds the params ``make(per_seed, gen)`` draws
+    from a host generator seeded ``seeds[p]``.  So each member starts where
+    a net of its own seed does (the JAX package's per-member init keys).
+    Every parameter must carry the member axis first."""
+    net = make(len(seeds) * per_seed, torch.Generator().manual_seed(0))
+    for p, seed in enumerate(seeds):
+        one = make(per_seed, torch.Generator().manual_seed(int(seed)))
+        for dst, src in zip(net.parameters(), one.parameters()):
+            dst[p * per_seed : (p + 1) * per_seed].copy_(src)
+    return net
+
+
+@torch.no_grad()
+def gather_members_(net: nn.Module, src, per: int = 1) -> None:
+    """In place, member p's params become member ``src[p]``'s (blocks of
+    ``per`` members each, as ``stack_members`` lays them out)."""
+    for p in net.parameters():
+        v = p.view(-1, per, *p.shape[1:])
+        v.copy_(v[torch.as_tensor(src, device=p.device)])
+
+
+class MemberAdam:
+    """``optax.adam`` per member under ``jax.vmap``, for params that carry the
+    member axis first: the moments are elementwise, and each member keeps its
+    own step count, so a member whose state was copied from an older snapshot
+    keeps that snapshot's bias correction.  ``update = lr * m_hat /
+    (sqrt(v_hat) + eps)``, as optax and ``torch.optim.Adam`` compute it."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, (self.b1, self.b2), self.eps = lr, betas, eps
+        p0 = self.params[0]
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self.step_count = torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        self.step_count += 1
+        t = self.step_count.to(torch.float32)
+        bc1, bc2_sqrt = 1.0 - self.b1**t, torch.sqrt(1.0 - self.b2**t)
+        torch._foreach_lerp_(self.exp_avg, grads, 1.0 - self.b1)
+        torch._foreach_mul_(self.exp_avg_sq, self.b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, 1.0 - self.b2)
+        for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
+            denom = (v.sqrt() / _lead(bc2_sqrt, v)).add_(self.eps)
+            p.addcdiv_(m * _lead(-self.lr / bc1, m), denom)
+
+    def member_state(self, p: int) -> dict:
+        """Copies of member p's moments and step count."""
+        return {
+            "exp_avg": [m[p].clone() for m in self.exp_avg],
+            "exp_avg_sq": [v[p].clone() for v in self.exp_avg_sq],
+            "step": self.step_count[p].clone(),
+        }
+
+    @torch.no_grad()
+    def load_member_state(self, p: int, state: dict) -> None:
+        for dst, src in zip(self.exp_avg, state["exp_avg"]):
+            dst[p].copy_(src)
+        for dst, src in zip(self.exp_avg_sq, state["exp_avg_sq"]):
+            dst[p].copy_(src)
+        self.step_count[p] = state["step"]
+
+
 def huber(x: torch.Tensor, min_priority: float = 0.01) -> torch.Tensor:
     """Elementwise huber with the reference's threshold semantics (networks.py:90-100)."""
     ax = torch.abs(x)
@@ -367,8 +469,12 @@ def load_flax_params(module: nn.Module, flax_params) -> nn.Module:
     ``flax_params`` is what the matching JAX module's ``init`` returns (with
     or without the top-level ``"params"``), with every leaf as a numpy array:
     ``MLP``, ``EnvelopeQNet``, an ``ensemble`` of ``WeightConditionedQNet``
-    (``members`` critics),
-    or the dynamics' ``GaussianMLP`` members stacked by ``jax.vmap``.  Each
+    (``members`` critics), the dynamics' ``GaussianMLP`` members stacked by
+    ``jax.vmap``, ``MOPPONet`` (its two MLPs and ``log_std``),
+    ``SquashedGaussianActor``, or a population tree whose leaves carry a
+    leading member axis (PGMORL's stacked states, MORL/D's ``jax.vmap`` of
+    the inits): a (P, in, out) or (P, 2, in, out) kernel fills a port
+    weight of P or P·2 members, as ``stack_members`` lays them out.  Each
     port module names its flax children in ``flax_layout()``.  A flax
     ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in), so
     those kernels are transposed, while ``EnsembleDense`` keeps flax's layout.

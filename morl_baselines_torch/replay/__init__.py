@@ -1,6 +1,6 @@
 """Device-resident replay buffers, updated in place."""
 
-from .buffer import ReplayBuffer, Transition
+from .buffer import MemberReplayBuffer, ReplayBuffer, Transition
 from .prioritized import PrioritizedReplayBuffer
 
-__all__ = ["PrioritizedReplayBuffer", "ReplayBuffer", "Transition"]
+__all__ = ["MemberReplayBuffer", "PrioritizedReplayBuffer", "ReplayBuffer", "Transition"]

@@ -90,3 +90,53 @@ class ReplayBuffer:
         """Sample observations only (reference buffer.py:118-124, used by Dyna)."""
         idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen, device=gen.device)
         return self.data.obs[idx]
+
+
+class MemberReplayBuffer:
+    """One ring buffer per population member, stacked on a leading axis:
+    storage (P, capacity, ...).  Every member adds its N rows of a step at
+    once (one shared pointer, as the JAX package's vmapped buffers keep equal
+    pointers), and each member samples its own indices."""
+
+    def __init__(self, data: Transition):
+        self.data = data  # tensors of shape (members, capacity, ...)
+        self.ptr = 0
+        self.size = 0
+
+    @property
+    def members(self) -> int:
+        return self.data.obs.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.data.obs.shape[1]
+
+    @staticmethod
+    def create(
+        members: int,
+        capacity: int,
+        obs_dim: int,
+        action_shape: tuple = (),
+        reward_dim: int = 2,
+        action_dtype=torch.int64,
+        obs_dtype=torch.float32,
+        device="cuda",
+    ) -> "MemberReplayBuffer":
+        data = _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device)
+        return MemberReplayBuffer(Transition(*(x[None].repeat(members, *([1] * x.dim())) for x in data)))
+
+    def add_batch(self, batch: Transition) -> "MemberReplayBuffer":
+        """Insert (P, N, ...) transitions at the ring pointer, in place."""
+        n = batch.obs.shape[1]
+        idx = (self.ptr + torch.arange(n, device=self.data.obs.device)) % self.capacity
+        for buf, new in zip(self.data, batch):
+            buf.index_copy_(1, idx, new.to(buf.dtype))
+        self.ptr = (self.ptr + n) % self.capacity
+        self.size = min(self.size + n, self.capacity)
+        return self
+
+    def sample(self, gen: torch.Generator, batch_size: int) -> Transition:
+        """batch_size uniform rows (with replacement) from each member's ring: (P, batch_size, ...)."""
+        idx = torch.randint(0, max(self.size, 1), (self.members, batch_size), generator=gen, device=gen.device)
+        rows = torch.arange(self.members, device=idx.device)[:, None]
+        return Transition(*(x[rows, idx] for x in self.data))

@@ -211,3 +211,52 @@ def test_continuous_slice_env_step_parity(env_id):
     assert tout.truncated.any() and not tout.truncated.all()
     if "mountaincar" in env_id:
         assert tout.terminated.any() and not tout.terminated.all()
+
+
+def test_normalize_reward_parity():
+    """``normalize_reward`` against the JAX package's over a run of steps with
+    episode ends (the accumulator reset by each step's own done), clip 10;
+    rtol 1e-6 on the statistics and the normalized rewards."""
+    from morl_baselines_torch.envs import RewardNormState, normalize_reward
+    from morl_baselines_tpu.envs.vector import RewardNormState as JRewardNormState
+    from morl_baselines_tpu.envs.vector import normalize_reward as j_normalize_reward
+
+    rng = np.random.default_rng(0)
+    n, d = 16, 2
+    s, js = RewardNormState.create(n, d, "cpu"), JRewardNormState.create(n, d)
+    for step in range(12):
+        r = (rng.normal(size=(n, d)) * [5.0, 0.1] + [1.0, -2.0]).astype(np.float32)
+        done = rng.uniform(size=n) < 0.2
+        s, out = normalize_reward(s, torch.as_tensor(r), torch.as_tensor(done), 0.99, clip=10.0)
+        js, jout = j_normalize_reward(js, jnp.asarray(r), jnp.asarray(done), 0.99, clip=10.0)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-6, atol=1e-7, err_msg=f"step {step}")
+    for a, b in zip(s, js):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+def test_normalize_reward_member_axis():
+    """Mirror of tests/test_envs.py::test_reward_normalizer, then a stacked
+    member axis: statistics (P, d) equal each member's own."""
+    from morl_baselines_torch.envs import RewardNormState, normalize_reward
+
+    rng = np.random.default_rng(1)
+    r = torch.as_tensor(rng.normal(size=(8, 2)).astype(np.float32) * 5.0)
+    norm, done = RewardNormState.create(8, 2, "cpu"), torch.zeros(8, dtype=torch.bool)
+    for _ in range(20):
+        norm, out = normalize_reward(norm, r, done, 0.99, clip=10.0)
+    assert bool(torch.isfinite(out).all()) and norm.var.shape == (2,)
+
+    rew = rng.normal(size=(6, 3, 8, 2)).astype(np.float32)
+    dones = rng.uniform(size=(6, 3, 8)) < 0.25
+    pop = RewardNormState.create(8, 2, "cpu", (3,))
+    outs = []
+    for t in range(6):
+        pop, o = normalize_reward(pop, torch.as_tensor(rew[t]), torch.as_tensor(dones[t]), 0.99, clip=10.0)
+        outs.append(o)
+    for p in range(3):
+        one = RewardNormState.create(8, 2, "cpu")
+        for t in range(6):
+            one, o = normalize_reward(one, torch.as_tensor(rew[t, p]), torch.as_tensor(dones[t, p]), 0.99, clip=10.0)
+            np.testing.assert_allclose(outs[t][p].numpy(), o.numpy(), rtol=1e-6)
+        for a, b in zip(pop, one):
+            np.testing.assert_allclose(a[p].numpy(), b.numpy(), rtol=1e-6)

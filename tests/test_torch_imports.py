@@ -18,6 +18,10 @@ import torch
 from morl_baselines_torch.agents import (
     GPILS,
     GPIPD,
+    MOPPO,
+    MORLD,
+    MOSAC,
+    PGMORL,
     Envelope,
     EnvelopeConfig,
     GPILSConfig,
@@ -26,6 +30,10 @@ from morl_baselines_torch.agents import (
     GPIPDConfig,
     GPIPDContinuous,
     GPIPDContinuousConfig,
+    MOPPOConfig,
+    MORLDConfig,
+    MOSACConfig,
+    PGMORLConfig,
 )
 from morl_baselines_torch.core import DeviceParetoFront
 from morl_baselines_torch.envs import make
@@ -42,7 +50,7 @@ for name in names:
 importlib.import_module("chip_smoke")
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "mujoco", "gymnasium", "morl_baselines_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(json.dumps({"modules": len(names), "leaked": leaked}))
+print(json.dumps({"modules": len(names), "names": names, "leaked": leaked}))
 """
 
 
@@ -56,6 +64,8 @@ def test_port_imports_no_jax():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["modules"] >= 20, got
     assert got["leaked"] == [], f"the port pulled in {got['leaked']}"
+    population = {f"morl_baselines_torch.agents.{m}" for m in ("moppo", "pgmorl", "mosac", "morld")}
+    assert population <= set(got["names"]), population - set(got["names"])
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch):
@@ -94,3 +104,25 @@ def test_continuous_entry_points_need_cuda_by_default(monkeypatch):
         state = agent.init_state()
         base = state.base if cls is GPIPDContinuous else state
         assert agent.device.type == "cpu" and base.obs.device.type == "cpu" and base.obs.shape == (4, 11)
+
+
+def test_population_entry_points_need_cuda_by_default(monkeypatch):
+    """MOPPO, PGMORL, MOSAC and MORL/D ask for CUDA unless told otherwise, and
+    raise without it; on the CPU, when asked, their states live there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = make("mo-mountaincarcontinuous-v0")
+    ppo = MOPPOConfig(num_envs=4, steps_per_iteration=16, hidden=(8,))
+    sac = MOSACConfig(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,))
+    makers = {
+        MOPPO: lambda **kw: MOPPO(env, [0.5, 0.5], ppo, **kw),
+        PGMORL: lambda **kw: PGMORL(env, [-120.0, -120.0], PGMORLConfig(pop_size=2, ppo=ppo), **kw),
+        MOSAC: lambda **kw: MOSAC(env, [0.5, 0.5], sac, **kw),
+        MORLD: lambda **kw: MORLD(env, MORLDConfig(pop_size=2, sac=sac), **kw),
+    }
+    for cls, make_agent in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_agent()
+        agent = make_agent(device="cpu")
+        single = agent if cls in (MOPPO, MOSAC) else (agent.agents if cls is PGMORL else agent.population)[0]
+        state = single.init_state([0, 1])
+        assert agent.device.type == "cpu" and state.obs.device.type == "cpu" and state.obs.shape == (2, 4, 2)
