@@ -37,7 +37,17 @@ envs, 8192 steps, 10 epochs of 32 minibatches) and ``[pgmorl_train]`` runs
 the vectorized MORL/D round of ``bench.py::bench_morld_halfcheetah`` (6
 MOSAC members of 256 envs, 32 iterations, 5 cooperation passes) and
 ``[morld_train]`` runs ``MORLD.train`` for 2 rounds with PSA; both archive
-fronts are scored on the card.  Every path is driven with the kernel's launch count
+fronts are scored on the card.  Then the tabular family and ESR at their
+examples' widths: ``[moql]`` trains MO-Q-Learning on deep-sea-treasure
+(``examples/mo_q_learning_dst.py``: 16 envs) and evaluates it greedily,
+``[mpmoql]`` runs 3 OLS iterations of MPMOQL
+(``examples/mp_mo_q_learning_dst.py``) and scores the CCS on the card,
+``[pql]`` trains Pareto Q-learning (``examples/pql_dst.py``), scores the
+local PCS at the start state on the card and tracks its max-treasure
+point, and ``[eupg]`` trains EUPG on fishwood (``examples/eupg_fishwood.py``:
+64 envs, chunks of 200 steps) and evaluates its ESR utility.  MO-Q-Learning
+and EUPG are single-policy and score no front, in the JAX package either,
+so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
 second-to-last line is a JSON record of the kernels, the last line
@@ -58,12 +68,15 @@ import numpy as np
 import torch
 
 from morl_baselines_torch.agents import (
+    EUPG,
     GPILS,
     GPIPD,
     MORLD,
     PGMORL,
+    PQL,
     Envelope,
     EnvelopeConfig,
+    EUPGConfig,
     GPILSConfig,
     GPILSContinuous,
     GPILSContinuousConfig,
@@ -72,12 +85,17 @@ from morl_baselines_torch.agents import (
     GPIPDContinuousConfig,
     MOPPO,
     MOPPOConfig,
+    MOQLearning,
+    MOQLearningConfig,
     MORLDConfig,
     MOSACConfig,
+    MPMOQLConfig,
+    MPMOQLearning,
     PGMORLConfig,
+    PQLConfig,
 )
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
-from morl_baselines_torch.envs import make
+from morl_baselines_torch.envs import fishwood_utility, make
 from morl_baselines_torch.evaluation import device_front_metrics
 from morl_baselines_torch.ops import _build
 from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
@@ -149,6 +167,27 @@ MORLD_CONFIG = MORLDConfig(
 # the repo's halfcheetah protocol (scripts/parity.py::pgmorl_halfcheetah, morld_halfcheetah; examples/morld_cheetah.py)
 CHEETAH_REF_POINT = np.array([-100.0, -100.0])
 POP_EVAL_STEPS = 100  # the population evaluations' episodes, cut from the env's 1000 steps
+
+# examples/mo_q_learning_dst.py: 16 envs, w (0.4, 0.6), gamma 0.9, epsilon 0.9 -> 0.1 over 100k steps
+MOQL_WEIGHTS = np.array([0.4, 0.6])
+MOQL_CONFIG = MOQLearningConfig(gamma=0.9, initial_epsilon=0.9, final_epsilon=0.1, epsilon_decay_steps=100_000, num_envs=16)
+MOQL_STEPS = 100_000  # the example trains 400k
+# examples/mp_mo_q_learning_dst.py: OLS, Q-table transfer, 40k steps per iteration of 16 envs
+MPMOQL_CONFIG = MPMOQLConfig(
+    num_timesteps_per_iteration=40_000, weight_selection_algo="ols", transfer_q_table=True,
+    moql=MOQLearningConfig(gamma=0.9, initial_epsilon=0.9, final_epsilon=0.1, epsilon_decay_steps=30_000, num_envs=16),
+)
+MPMOQL_ITERS = 3  # the example runs 10
+DST_REF_POINT = np.array([0.0, -50.0])  # examples/mp_mo_q_learning_dst.py, examples/pql_dst.py
+# examples/pql_dst.py: sets of K = 16, gamma 1, epsilon 1 -> 0.2 over 80k steps, one env
+PQL_CONFIG = PQLConfig(gamma=1.0, initial_epsilon=1.0, final_epsilon=0.2, epsilon_decay_steps=80_000)
+PQL_STEPS = 2_000  # the example runs 100k
+# examples/eupg_fishwood.py: 64 envs, chunks of 200 steps, lr 1e-3, gamma 0.99, (64, 64); seed 1: at seed 0
+# the card's random stream collapses to the river-only policy (utility 0), as the JAX package does at 3 of
+# 12 seeds on the CPU
+EUPG_CONFIG = EUPGConfig(num_envs=64, chunk_len=200, learning_rate=1e-3, gamma=0.99, seed=1)
+EUPG_CHUNKS = 31  # 396,800 steps, RESULTS.md's 400k row (the example runs 2M)
+EUPG_RESULTS_UTILITY = 21.0  # RESULTS.md:34, the JAX package at 400k steps: a quality record, not a target
 
 
 def log(msg: str) -> None:
@@ -864,6 +903,127 @@ def phase_morld_train(smi: str) -> int:
     return score_on_card(algo._last_front, host, CHEETAH_REF_POINT)
 
 
+def phase_moql(smi: str) -> None:
+    """``MOQLearning.train`` on deep-sea-treasure at the example's config, one
+    segment and one greedy evaluation; then a profiled window of 50 iterations."""
+    agent = MOQLearning(make("deep-sea-treasure-v0"), MOQL_WEIGHTS, MOQL_CONFIG)
+    timer = PhaseTimer()
+    timer.wrap(agent, "train_segment")
+    timer.wrap(agent, "_policy_eval")
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=MOQL_STEPS, eval_freq=MOQL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = MOQL_STEPS // MOQL_CONFIG.num_envs
+    (seg, _), = timer.calls["train_segment"]
+    (ev, _), = timer.calls["_policy_eval"]
+    ret, disc = agent.last_eval
+    if state.global_step != MOQL_STEPS or not bool(torch.isfinite(state.q_table).all()):
+        raise AssertionError(f"global_step {state.global_step}, or a non-finite Q-table")
+    if not (np.isfinite(ret).all() and ret[0] > 0):
+        raise AssertionError(f"greedy evaluation returned {ret}: no treasure reached")
+    log(f"[moql] deep-sea-treasure num_envs={MOQL_CONFIG.num_envs} w={MOQL_WEIGHTS.tolist()}: MOQLearning.train "
+        f"{state.global_step} steps in {wall:.2f} s; train_segment {1e3 * seg / iters:.3f} ms/iteration, "
+        f"{MOQL_STEPS / seg:.0f} env-steps/s; greedy evaluation {1e3 * ev:.0f} ms: return {ret.tolist()}, "
+        f"discounted {disc.tolist()} [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 50), "moql 50 iterations")
+    if prof:
+        log(f"[moql] {prof['launches'] / 50:.1f} launches an iteration, device busy {prof['busy_ms'] / 50:.4f} ms of "
+            f"{1e3 * seg / iters:.3f} ms ({100 * prof['busy_ms'] / 50 / (1e3 * seg / iters):.1f}%)")
+
+
+def phase_mpmoql(smi: str) -> int:
+    """``MPMOQLearning.train``: 3 OLS iterations of the example's config, the
+    CCS scored on the card at the example's ref point."""
+    env = make("deep-sea-treasure-v0")
+    agent = MPMOQLearning(env, MPMOQL_CONFIG)
+    ends = []  # the end of each OLS iteration: its evaluation is its last step
+    eval_weight = agent._eval_weight
+    agent._eval_weight = lambda *a, **kw: (eval_weight(*a, **kw), ends.append(time.perf_counter()))[0]
+    t0 = time.perf_counter()
+    agent.train(total_timesteps=MPMOQL_ITERS * MPMOQL_CONFIG.num_timesteps_per_iteration, ref_point=DST_REF_POINT,
+                known_pareto_front=env.pareto_front(MPMOQL_CONFIG.moql.gamma))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(ends) != MPMOQL_ITERS or not agent.ccs:
+        raise AssertionError(f"{len(ends)} OLS iterations, CCS {agent.ccs}")
+    if not all(bool(torch.isfinite(st.q_table).all()) for st in agent.states):
+        raise AssertionError("a non-finite Q-table")
+    each = np.diff([t0, *ends])
+    host = agent._last_metrics
+    log(f"[mpmoql] deep-sea-treasure OLS {MPMOQL_ITERS} iterations of {MPMOQL_CONFIG.num_timesteps_per_iteration} steps, "
+        f"num_envs={MPMOQL_CONFIG.moql.num_envs}: {wall:.2f} s, per iteration {[round(float(x), 3) for x in each]} s; weights "
+        f"{[[round(float(x), 4) for x in w] for w in agent.policy_weights]}; CCS {[[round(float(x), 4) for x in v] for v in agent.ccs]}; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(np.stack(agent.ccs), host, DST_REF_POINT)
+
+
+def phase_pql(smi: str) -> int:
+    """``PQL.train`` at the example's config for ``PQL_STEPS`` steps; then a
+    profiled window of 20 steps, the local PCS at the start state scored on
+    the card, and ``track_policy`` of its max-treasure point."""
+    env = make("deep-sea-treasure-v0")
+    agent = PQL(env, DST_REF_POINT, PQL_CONFIG)
+    timer = PhaseTimer()
+    timer.wrap(agent, "train_segment")
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=PQL_STEPS, ref_point=DST_REF_POINT,
+                        known_pareto_front=env.pareto_front(PQL_CONFIG.gamma), eval_freq=PQL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (seg, _), = timer.calls["train_segment"]
+    front, host = agent._last_front, agent._last_metrics
+    if state.global_step != PQL_STEPS or not len(front) or not bool(torch.isfinite(state.q_sets).all()):
+        raise AssertionError(f"global_step {state.global_step}, local PCS {front}, or non-finite Q-sets")
+    log(f"[pql] deep-sea-treasure K={PQL_CONFIG.set_capacity}: PQL.train {PQL_STEPS} steps in {wall:.2f} s; "
+        f"train_segment {1e3 * seg / PQL_STEPS:.3f} ms/step; {int(state.q_valid.sum())} set members; local PCS at the "
+        f"start state {front.tolist()}; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 20), "pql 20 steps")
+    if prof:
+        log(f"[pql] {prof['launches'] / 20:.1f} launches a step, device busy {prof['busy_ms'] / 20:.4f} ms of "
+            f"{1e3 * seg / PQL_STEPS:.3f} ms ({100 * prof['busy_ms'] / 20 / (1e3 * seg / PQL_STEPS):.1f}%)")
+    launched = score_on_card(front, host, DST_REF_POINT)
+    target = front[np.argmax(front[:, 0])]
+    t0 = time.perf_counter()
+    tracked = agent.track_policy(state, target)
+    if tracked.shape != (2,) or not np.isfinite(tracked).all():
+        raise AssertionError(f"track_policy returned {tracked}")
+    log(f"[pql] track_policy of {target.tolist()}: return {tracked.tolist()} in {1e3 * (time.perf_counter() - t0):.0f} ms")
+    return launched
+
+
+def phase_eupg(smi: str) -> None:
+    """``EUPG.train`` on fishwood at the example's config for ``EUPG_CHUNKS``
+    chunks and one ESR evaluation; then a profiled chunk."""
+    agent = EUPG(make("fishwood-v0"), fishwood_utility, config=EUPG_CONFIG)
+    per_chunk = EUPG_CONFIG.num_envs * EUPG_CONFIG.chunk_len
+    timer = PhaseTimer()
+    timer.wrap(agent, "train_segment", keep=float)
+    timer.wrap(agent, "_eval_esr")
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=EUPG_CHUNKS * per_chunk, eval_freq=EUPG_CHUNKS * per_chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chunks = [dt for dt, _ in timer.calls["train_segment"]]
+    losses = [loss for _, loss in timer.calls["train_segment"]]
+    (ev, _), = timer.calls["_eval_esr"]
+    ret, disc = agent.last_eval
+    if state.global_step != EUPG_CHUNKS * per_chunk or len(chunks) != EUPG_CHUNKS or not _params_finite(state.net):
+        raise AssertionError(f"global_step {state.global_step}, {len(chunks)} chunks, or non-finite params")
+    if not (np.isfinite(ret).all() and np.isfinite(disc).all() and (ret >= 0).all() and math.isfinite(losses[-1])):
+        raise AssertionError(f"ESR evaluation returned {ret}, {disc}; last loss {losses[-1]}")
+    ms = 1e3 * statistics.median(chunks[1:])
+    utility = float(fishwood_utility(torch.as_tensor(ret)))
+    log(f"[eupg] fishwood num_envs={EUPG_CONFIG.num_envs} chunk_len={EUPG_CONFIG.chunk_len} hidden={EUPG_CONFIG.hidden}: "
+        f"EUPG.train {state.global_step} steps in {wall:.2f} s; {ms:.1f} ms a chunk (median of {EUPG_CHUNKS - 1} after "
+        f"the first, {1e3 * chunks[0]:.1f}), {per_chunk / (ms / 1e3):.0f} env-steps/s; ESR evaluation {1e3 * ev:.0f} ms: "
+        f"return {ret.tolist()}, utility min(fish, wood // 2) = {utility:g} (RESULTS.md: {EUPG_RESULTS_UTILITY:g} at 400k "
+        f"steps, the JAX package); last loss {losses[-1]:.4g} [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state), "eupg 1 chunk")
+    if prof:
+        log(f"[eupg] {prof['launches']} launches a chunk, device busy {100 * prof['busy_ms'] / ms:.1f}% of the chunk")
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -922,13 +1082,19 @@ def main() -> int:
         "gpipd_cont": lambda: phase_gpipd_cont_train(smi),
         "pgmorl": lambda: (phase_pgmorl_iter(smi), phase_pgmorl_train(smi)),
         "morld": lambda: (phase_morld_step(smi), phase_morld_train(smi)),
+        "moql": lambda: phase_moql(smi),
+        "mpmoql": lambda: phase_mpmoql(smi),
+        "pql": lambda: phase_pql(smi),
+        "eupg": lambda: phase_eupg(smi),
     }
+    # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
+    no_front = {"moql", "eupg"}
     launches_by_path = {}
     for name, drive in paths.items():
         non_dominated_mask_cuda.launches = 0
         drive()
         launches_by_path[name] = non_dominated_mask_cuda.launches
-        if launches_by_path[name] == 0:
+        if launches_by_path[name] == 0 and name not in no_front:
             raise AssertionError(f"the {name} path never launched the pareto_nd kernel")
     launches = sum(launches_by_path.values())
 

@@ -4,8 +4,10 @@ PyTorch port of ``morl_baselines_tpu/core/indicators.py`` (reference
 morl_baselines/common/performance_indicators.py:15-128):
 
 - ``hypervolume_2d`` / ``hypervolume_3d``: exact sort-and-sweep on the
-  tensor's device; ``hypervolume``: exact WFG recursion on the host (the
-  port's own numpy copy).
+  tensor's device; ``hypervolume_small_exact`` (inclusion–exclusion, any d,
+  N <= 20) and ``hypervolume_mc`` (Monte-Carlo, any d) for PQL's action
+  sets; ``hypervolume``: exact WFG recursion on the host (the port's own
+  numpy copy).
 - ``expected_utility`` (EUM), ``maximum_utility_loss`` (MUL),
   ``cardinality``, ``igd``, ``sparsity``: tensor reductions over
   (front, weights).
@@ -36,13 +38,13 @@ def hypervolume_2d(front, ref_point, valid: torch.Tensor | None = None) -> torch
 
     Clips points to the ref box, collapses dominated/invalid points onto the
     ref point (zero contribution), sorts by the first objective, and sums the
-    staircase area.  ``valid`` may be batched (..., N): one HV per mask row.
+    staircase area.  ``front`` (..., N, 2) and ``valid`` (..., N) broadcast
+    over their leading dims: one HV per set.
     """
     front = _f32(front)
     ref = _f32(ref_point, front.device)
-    n = front.shape[0]
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=front.device)
+        valid = torch.ones(front.shape[:-1], dtype=torch.bool, device=front.device)
     nd = non_dominated_mask(front, valid)
     pts = torch.where(nd[..., None], torch.maximum(front, ref), ref)
     order = torch.argsort(pts[..., 0], dim=-1, stable=True)
@@ -62,22 +64,76 @@ def hypervolume_3d(front, ref_point, valid: torch.Tensor | None = None) -> torch
     Slab sweep over the third objective: sort points by obj-2 descending; the
     slab between consecutive z-values contributes (z_i - z_next) times the 2-D
     hypervolume of the points at or above that z (a prefix of the order), all
-    N staircases in one batched ``hypervolume_2d``.
+    N staircases in one batched ``hypervolume_2d``.  ``front`` (..., N, 3) and
+    ``valid`` (..., N) broadcast over their leading dims: one HV per set.
     """
     front = _f32(front)
     ref = _f32(ref_point, front.device)
-    n = front.shape[0]
+    n = front.shape[-2]
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=front.device)
+        valid = torch.ones(front.shape[:-1], dtype=torch.bool, device=front.device)
     # collapse invalid points onto ref: zero volume, sorted last
-    pts = torch.where(valid[:, None], torch.maximum(front, ref), ref)
-    pts = pts[torch.argsort(-pts[:, 2], stable=True)]
-    z = pts[:, 2]
-    z_next = torch.cat([z[1:], ref[2:3]])
+    pts = torch.where(valid[..., None], torch.maximum(front, ref), ref)
+    order = torch.argsort(-pts[..., 2], dim=-1, stable=True)
+    pts = torch.gather(pts, -2, order[..., None].expand(*order.shape, 3))
+    z = pts[..., 2]
+    z_next = torch.cat([z[..., 1:], ref[2].expand(*z.shape[:-1], 1)], dim=-1)
     idx = torch.arange(n, device=front.device)
     prefix = idx[None, :] <= idx[:, None]  # (i, j): j in the prefix of i
-    hv2 = hypervolume_2d(pts[:, :2], ref[:2], prefix)
-    return torch.sum(torch.clamp(z - z_next, min=0.0) * hv2)
+    hv2 = hypervolume_2d(pts[..., None, :, :2], ref[:2], prefix)  # (..., N)
+    return torch.sum(torch.clamp(z - z_next, min=0.0) * hv2, dim=-1)
+
+
+def hypervolume_small_exact(front, ref_point, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact hypervolume at any d for small N (N <= 20), on the front's device.
+
+    Inclusion–exclusion over the union of boxes [ref, p_i]:
+        HV = Σ_{∅≠S⊆points} (−1)^{|S|+1} · vol([ref, min_{i∈S} p_i])
+    as one dense (2^N − 1, N) subset-mask computation.  Invalid points
+    collapse onto the ref (an empty box in every subset holding them).
+    ``front`` may be (..., N, d) with ``valid`` (..., N): one HV per set.
+    """
+    front = _f32(front)
+    ref = _f32(ref_point, front.device)
+    n = front.shape[-2]
+    if n > 20:
+        raise ValueError(f"inclusion-exclusion HV is for small capacity-bounded sets, got N={n}")
+    if valid is None:
+        valid = torch.ones(front.shape[:-1], dtype=torch.bool, device=front.device)
+    pts = torch.where(valid[..., None], torch.maximum(front, ref), ref)
+    subsets = torch.arange(1, 2**n, device=front.device)
+    member = ((subsets[:, None] >> torch.arange(n, device=front.device)[None, :]) & 1).bool()  # (2^n-1, n)
+    # min over the selected points per dim; non-members at +inf
+    sel = torch.where(member[:, :, None], pts[..., None, :, :], torch.inf)
+    mins = torch.min(sel, dim=-2).values  # (..., 2^n-1, d)
+    vols = torch.prod(torch.clamp(mins - ref, min=0.0), dim=-1)
+    sign = torch.where(member.sum(dim=1) % 2 == 1, 1.0, -1.0)
+    return torch.sum(sign * vols, dim=-1)
+
+
+def hypervolume_mc(
+    front, ref_point, gen: torch.Generator, valid: torch.Tensor | None = None, n_samples: int = 16384
+) -> torch.Tensor:
+    """Monte-Carlo hypervolume estimate at any d, on the front's device.
+
+    Samples uniformly in the bounding box [ref, max(front)] and measures the
+    dominated fraction.  ``front`` may be (..., N, d) with ``valid`` (..., N);
+    every set is measured with the same uniforms (common random numbers),
+    drawn from ``gen`` on the front's device.
+    """
+    front = _f32(front)
+    ref = _f32(ref_point, front.device)
+    if valid is None:
+        valid = torch.ones(front.shape[:-1], dtype=torch.bool, device=front.device)
+    pts = torch.where(valid[..., None], torch.maximum(front, ref), ref)
+    hi = torch.max(pts, dim=-2).values  # (..., d)
+    box = torch.prod(torch.clamp(hi - ref, min=0.0), dim=-1)
+    u = torch.rand((n_samples, front.shape[-1]), generator=gen, device=front.device)
+    samples = ref + u * (hi - ref)[..., None, :]  # (..., S, d)
+    # sample s is covered iff some valid point p >= s
+    ge = torch.all(pts[..., None, :, :] >= samples[..., :, None, :], dim=-1)  # (..., S, N)
+    covered = torch.any(ge & valid[..., None, :], dim=-1)
+    return box * torch.mean(covered.to(torch.float32), dim=-1)
 
 
 def _hv_wfg(points: np.ndarray, ref: np.ndarray) -> float:

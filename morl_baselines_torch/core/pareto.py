@@ -22,22 +22,24 @@ def non_dominated_mask(
     """Boolean mask of Pareto-non-dominated rows of ``points``.
 
     The plain O(N^2 d) pairwise comparison, materializing (N, N) masks.
-    ``valid`` may carry leading batch dimensions (..., N); invalid rows are
+    ``points`` may be (..., N, d), one set per leading index, and ``valid``
+    may carry leading batch dimensions (..., N) over either; invalid rows are
     absent and always reported dominated.  ``keep_duplicates=False`` keeps only
     the first valid occurrence of each group of exact duplicates.
 
     Returns (..., N) bool, True where the row is valid and non-dominated.
     """
-    n = points.shape[0]
+    n = points.shape[-2]
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=points.device)
+        valid = torch.ones(points.shape[:-1], dtype=torch.bool, device=points.device)
     # dom[i, j] = point i dominates point j
-    ge = torch.all(points[:, None, :] >= points[None, :, :], dim=-1)
-    gt = torch.any(points[:, None, :] > points[None, :, :], dim=-1)
+    a, b = points[..., :, None, :], points[..., None, :, :]
+    ge = torch.all(a >= b, dim=-1)
+    gt = torch.any(a > b, dim=-1)
     dom = ge & gt & valid[..., :, None]
     mask = valid & ~torch.any(dom, dim=-2)
     if not keep_duplicates:
-        eq = torch.all(points[:, None, :] == points[None, :, :], dim=-1)
+        eq = torch.all(a == b, dim=-1)
         eq = eq & valid[..., :, None] & valid[..., None, :]
         # first valid occurrence of each duplicate group survives: lowest i with eq[i, j]
         first = torch.argmax(eq.to(torch.uint8), dim=-2)

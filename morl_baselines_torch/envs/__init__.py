@@ -2,6 +2,7 @@
 
 from .base import Box, Discrete, MOEnv, StepOut
 from .dst import DeepSeaTreasure
+from .fishwood import Fishwood, fishwood_utility
 from .minecart import Minecart
 from .mountaincar import MOMountainCar, MOMountainCarContinuous
 from .planar import MOHalfCheetahJX, MOHopperJX, PlanarState
@@ -15,6 +16,7 @@ __all__ = [
     "Discrete",
     "ENV_REGISTRY",
     "EpisodeStats",
+    "Fishwood",
     "MOEnv",
     "MOHalfCheetahJX",
     "MOHopperJX",
@@ -27,6 +29,7 @@ __all__ = [
     "VecStepOut",
     "VectorMOEnv",
     "WaterReservoir",
+    "fishwood_utility",
     "make",
     "normalize_reward",
 ]

@@ -91,6 +91,14 @@ class MOEnv:
     def step(self, state, action: torch.Tensor, noise: torch.Tensor | None = None) -> StepOut:
         raise NotImplementedError
 
+    # Tabular support: envs with enumerable states expose an integer index so
+    # the tabular agents (MOQL, MPMOQL, PQL) keep dense (S, A, ...) tables.
+    num_states: int | None = None
+
+    def state_index(self, obs: torch.Tensor) -> torch.Tensor:
+        """Integer state index (int64) of each row of a batch of obs (..., obs_dim)."""
+        raise NotImplementedError(f"{self.name} has no discrete state indexing")
+
     def pareto_front(self, gamma: float) -> np.ndarray | None:
         """Known discounted Pareto front, when the env has one (host numpy)."""
         return None

@@ -86,6 +86,13 @@ class DeepSeaTreasure(MOEnv):
         t = state.t + 1
         return StepOut(DSTState(row, col, t), self._obs(DSTState(row, col, t)), reward, on_treasure, t >= self.max_episode_steps)
 
+    num_states = _N_ROWS * _N_COLS
+
+    def state_index(self, obs: torch.Tensor) -> torch.Tensor:
+        """row * 10 + col of each obs (..., 2), as int64."""
+        cells = obs.long()
+        return cells[..., 0] * _N_COLS + cells[..., 1]
+
     def pareto_front(self, gamma: float) -> np.ndarray:
         """Discounted front: one point per treasure, reached by the shortest path.
 

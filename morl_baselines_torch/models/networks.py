@@ -471,7 +471,7 @@ def load_flax_params(module: nn.Module, flax_params) -> nn.Module:
     ``MLP``, ``EnvelopeQNet``, an ``ensemble`` of ``WeightConditionedQNet``
     (``members`` critics), the dynamics' ``GaussianMLP`` members stacked by
     ``jax.vmap``, ``MOPPONet`` (its two MLPs and ``log_std``),
-    ``SquashedGaussianActor``, or a population tree whose leaves carry a
+    ``SquashedGaussianActor``, EUPG's ``PolicyNet``, or a population tree whose leaves carry a
     leading member axis (PGMORL's stacked states, MORL/D's ``jax.vmap`` of
     the inits): a (P, in, out) or (P, 2, in, out) kernel fills a port
     weight of P or P·2 members, as ``stack_members`` lays them out.  Each

@@ -16,13 +16,16 @@ import pytest
 import torch
 
 from morl_baselines_torch.agents import (
+    EUPG,
     GPILS,
     GPIPD,
     MOPPO,
     MORLD,
     MOSAC,
     PGMORL,
+    PQL,
     Envelope,
+    EUPGConfig,
     EnvelopeConfig,
     GPILSConfig,
     GPILSContinuous,
@@ -31,12 +34,17 @@ from morl_baselines_torch.agents import (
     GPIPDContinuous,
     GPIPDContinuousConfig,
     MOPPOConfig,
+    MOQLearning,
+    MOQLearningConfig,
     MORLDConfig,
     MOSACConfig,
+    MPMOQLConfig,
+    MPMOQLearning,
     PGMORLConfig,
+    PQLConfig,
 )
 from morl_baselines_torch.core import DeviceParetoFront
-from morl_baselines_torch.envs import make
+from morl_baselines_torch.envs import fishwood_utility, make
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -64,8 +72,8 @@ def test_port_imports_no_jax():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["modules"] >= 20, got
     assert got["leaked"] == [], f"the port pulled in {got['leaked']}"
-    population = {f"morl_baselines_torch.agents.{m}" for m in ("moppo", "pgmorl", "mosac", "morld")}
-    assert population <= set(got["names"]), population - set(got["names"])
+    later = {f"morl_baselines_torch.agents.{m}" for m in ("moppo", "pgmorl", "mosac", "morld", "moql", "mpmoql", "pql", "eupg")}
+    assert later <= set(got["names"]), later - set(got["names"])
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch):
@@ -126,3 +134,27 @@ def test_population_entry_points_need_cuda_by_default(monkeypatch):
         single = agent if cls in (MOPPO, MOSAC) else (agent.agents if cls is PGMORL else agent.population)[0]
         state = single.init_state([0, 1])
         assert agent.device.type == "cpu" and state.obs.device.type == "cpu" and state.obs.shape == (2, 4, 2)
+
+
+def test_tabular_and_esr_entry_points_need_cuda_by_default(monkeypatch):
+    """MOQLearning, MPMOQLearning, PQL and EUPG ask for CUDA unless told
+    otherwise, and raise without it; on the CPU, when asked, their tables and
+    states live there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dst, fishwood = make("deep-sea-treasure-v0"), make("fishwood-v0")
+    makers = {
+        MOQLearning: lambda **kw: MOQLearning(dst, [0.5, 0.5], MOQLearningConfig(num_envs=4), **kw),
+        MPMOQLearning: lambda **kw: MPMOQLearning(dst, MPMOQLConfig(), **kw),
+        PQL: lambda **kw: PQL(dst, [0.0, -50.0], PQLConfig(), **kw),
+        EUPG: lambda **kw: EUPG(fishwood, fishwood_utility, config=EUPGConfig(num_envs=4, hidden=(8,)), **kw),
+    }
+    for cls, make_agent in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_agent()
+        agent = make_agent(device="cpu")
+        assert agent.device.type == "cpu"
+        if cls is MPMOQLearning:
+            continue
+        state = agent.init_state()
+        table = {MOQLearning: "q_table", PQL: "q_sets"}.get(cls)
+        assert state.obs.device.type == "cpu" and (table is None or getattr(state, table).device.type == "cpu")
