@@ -45,9 +45,23 @@ examples' widths: ``[moql]`` trains MO-Q-Learning on deep-sea-treasure
 ``[pql]`` trains Pareto Q-learning (``examples/pql_dst.py``), scores the
 local PCS at the start state on the card and tracks its max-treasure
 point, and ``[eupg]`` trains EUPG on fishwood (``examples/eupg_fishwood.py``:
-64 envs, chunks of 200 steps) and evaluates its ESR utility.  MO-Q-Learning
-and EUPG are single-policy and score no front, in the JAX package either,
-so their paths launch no kernel.  Every path is driven with the kernel's launch count
+64 envs, chunks of 200 steps) and evaluates its ESR utility.  Then the
+remaining multi-policy algorithms at their examples' widths: ``[capql]``
+times CAPQL's ``train_segment`` on ``mo-hopper-jx-v5`` after learning starts
+(``examples/capql_hopper.py``: 32 envs, 2 critics of (256, 256), 8 updates
+an iteration) and runs ``CAPQL.train`` with two evaluations of 32 weights;
+``[pcn]`` runs ``PCN.train`` on deterministic minecart
+(``examples/pcn_minecart.py``: 8 envs, 400-step episodes, 50 model updates
+a round), each round split into update, commands, collect and add, and
+re-executes 8 commands greedily; ``[lcn]`` runs ``LCN.train`` on fruit-tree
+(``examples/lcn_fruit_tree.py``: 16 envs, Lorenz lambda 1) and times the
+host's 6-D hypervolume; ``[ipro]`` runs ``IPRO.train`` on deep-sea-treasure
+(``examples/ipro_dst.py``: the NL-MOPPO oracle of 64 envs x 128 steps), each
+oracle call and each NL-MOPPO iteration's rollout, update and evaluation
+timed.  Each of the four scores its front on the card (3-D, 3-D, 6-D and
+2-D); the kernel's inputs include d = 6 rows for LCN's fronts.
+MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
+package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
 second-to-last line is a JSON record of the kernels, the last line
@@ -68,12 +82,17 @@ import numpy as np
 import torch
 
 from morl_baselines_torch.agents import (
+    CAPQL,
     EUPG,
     GPILS,
     GPIPD,
+    IPRO,
+    LCN,
     MORLD,
+    PCN,
     PGMORL,
     PQL,
+    CAPQLConfig,
     Envelope,
     EnvelopeConfig,
     EUPGConfig,
@@ -83,6 +102,8 @@ from morl_baselines_torch.agents import (
     GPIPDConfig,
     GPIPDContinuous,
     GPIPDContinuousConfig,
+    IPROConfig,
+    LCNConfig,
     MOPPO,
     MOPPOConfig,
     MOQLearning,
@@ -91,12 +112,16 @@ from morl_baselines_torch.agents import (
     MOSACConfig,
     MPMOQLConfig,
     MPMOQLearning,
+    NLMOPPOConfig,
+    PCNConfig,
     PGMORLConfig,
     PQLConfig,
 )
+from morl_baselines_torch.agents.ipro import make_linear_u
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import fishwood_utility, make
-from morl_baselines_torch.evaluation import device_front_metrics
+from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics
+from morl_baselines_torch.evaluation import evaluation as evaluation_module
 from morl_baselines_torch.ops import _build
 from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
 
@@ -188,6 +213,35 @@ PQL_STEPS = 2_000  # the example runs 100k
 EUPG_CONFIG = EUPGConfig(num_envs=64, chunk_len=200, learning_rate=1e-3, gamma=0.99, seed=1)
 EUPG_CHUNKS = 31  # 396,800 steps, RESULTS.md's 400k row (the example runs 2M)
 EUPG_RESULTS_UTILITY = 21.0  # RESULTS.md:34, the JAX package at 400k steps: a quality record, not a target
+
+# examples/capql_hopper.py: 32 envs, buffer 200k, batch 256, learning_starts 1000, 8 gradient updates, gamma 0.99;
+# 2 critics of (256, 256) and the cone angle 0.418 by default; 500-step episodes, ref (-100, -100, -100)
+CAPQL_CONFIG = CAPQLConfig(num_envs=32, buffer_size=200_000, batch_size=256, learning_starts=1_000, gradient_updates=8,
+                           gamma=0.99)
+CAPQL_STEPS, CAPQL_EVAL_FREQ = 8_000, 4_000  # the example trains 150k, evaluating every 10k
+CAPQL_SEG_ITERS = 20  # timed iterations of train_segment after learning_starts
+# examples/pcn_minecart.py: gamma 1, scaling (1, 1, 0.1, 0.1), 400-step episodes, 128 buffer episodes, 8 envs,
+# 50 model updates a round; batch 256 and hidden 64 by default; 32 warm-up episodes, ref (0, 0, -200)
+PCN_CONFIG = PCNConfig(gamma=1.0, scaling_factor=(1.0, 1.0, 0.1, 0.1), max_episode_len=400, max_buffer_episodes=128,
+                       num_envs=8, num_model_updates=50)
+PCN_STEPS, PCN_EVAL_FREQ, PCN_ER_EPISODES = 20_000, 10_000, 32  # the example trains 400k
+# examples/lcn_fruit_tree.py: 16 envs, 8-step episodes, 128 buffer episodes, scaling 0.1 x 7, Lorenz lambda 1;
+# 64 warm-up episodes, ref zeros(6).  One evaluation at the first round (step 480: 384 warm-up steps, then 96 a
+# round) and one near the end (step 9,504; an eval_freq of 10,000 would fall after the last round, at 10,080):
+# each runs the host's Python WFG hypervolume in 6-D, seconds at 64 points
+LCN_CONFIG = LCNConfig(gamma=1.0, scaling_factor=(0.1,) * 7, max_episode_len=8, max_buffer_episodes=128, num_envs=16,
+                       lorenz_lambda=1.0)
+LCN_STEPS, LCN_EVAL_FREQ = 10_000, 9_000  # the example trains 100k
+LCN_ER_EPISODES = 64
+# examples/ipro_dst.py: NL-MOPPO of 64 envs x 128 steps, 4 epochs of 4 minibatches, gamma 0.995, ent_coef 0.05
+# ramped from 0.15, (64, 64) by default; tolerance 0.05, offset 1.  Cut to 10 NL-MOPPO iterations an oracle
+# call (the example 150k steps, 18) and 2 outer iterations (24).  At 2 iterations a call the card's random
+# stream left both extrema on one point; at 10, eight seeds on the CPU all found two
+IPRO_CONFIG = IPROConfig(
+    tolerance=0.05, offset=1.0, max_iterations=2, iter_total_timesteps=81_920,
+    ppo=NLMOPPOConfig(num_envs=64, num_steps=128, update_epochs=4, num_minibatches=4, gamma=0.995, ent_coef=0.05,
+                      ent_coef_start=0.15),
+)
 
 
 def log(msg: str) -> None:
@@ -318,9 +372,12 @@ ND_INPUTS = [
     ("random", 256, 3), ("random", 257, 3), ("front", 4096, 16), ("archive_add", 8192, 3), ("front", 3000, 1),
     # +-inf on valid rows, one block and chunked: the exact predicate path, both dedup modes
     ("inf", 200, 3), ("inf", 3000, 3),
+    # d = 6, LCN's fruit-tree fronts: one block (the buffer's 128 episodes) and chunked
+    ("front", 128, 6), ("random", 128, 6), ("front", 8192, 6), ("random", 8192, 6),
 ]  # fmt: skip
-# timed: the main path's archive add (N=96) and archive-scale inputs
-ND_TIMED = {("random", 96, 3), ("random", 8192, 3), ("random", 131072, 3), ("front", 131072, 3), ("archive_add", 131072, 3)}
+# timed: the main path's archive add (N=96), archive-scale inputs, and d = 6 at LCN's buffer size and above
+ND_TIMED = {("random", 96, 3), ("random", 8192, 3), ("random", 131072, 3), ("front", 131072, 3), ("archive_add", 131072, 3),
+            ("front", 128, 6), ("front", 8192, 6), ("random", 8192, 6)}
 
 
 def device_ms(fn, name: str = "nd_mask", calls: int = 20) -> float | None:
@@ -1024,6 +1081,179 @@ def phase_eupg(smi: str) -> None:
         log(f"[eupg] {prof['launches']} launches a chunk, device busy {100 * prof['busy_ms'] / ms:.1f}% of the chunk")
 
 
+def phase_capql(smi: str) -> int:
+    """CAPQL on the hopper at the example's config: ``train_segment`` past
+    ``learning_starts``, then ``CAPQL_SEG_ITERS`` timed iterations and a
+    profiled window; then ``CAPQL.train`` from scratch with two evaluations
+    of 32 weights, its front scored on the card."""
+    env = make("mo-hopper-jx-v5", max_episode_steps=HOPPER_EPISODE_STEPS)
+    cfg, N = CAPQL_CONFIG, CAPQL_CONFIG.num_envs
+    agent = CAPQL(env, cfg)
+    state = agent.init_state()
+    agent.train_segment(state, cfg.learning_starts // N + 2)  # the first updates warm the allocator and cuBLAS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train_segment(state, CAPQL_SEG_ITERS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CAPQL_SEG_ITERS
+    log(f"[capql] mo-hopper num_envs={N} hidden={cfg.hidden} batch={cfg.batch_size} gradient_updates={cfg.gradient_updates}: "
+        f"train_segment {ms:.2f} ms/iteration, {N / (ms / 1e3):.0f} env-steps/s [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 3), "capql 3 iterations")
+    if prof:
+        log(f"[capql] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms of "
+            f"{ms:.2f} ms ({100 * prof['busy_ms'] / 3 / ms:.1f}%)")
+
+    agent = CAPQL(env, cfg)
+    timer = PhaseTimer()
+    timer.wrap(agent, "train_segment")
+    timer.wrap(agent, "_eval_front")
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=CAPQL_STEPS, ref_point=HOPPER_REF_POINT, eval_freq=CAPQL_EVAL_FREQ,
+                        num_eval_weights_for_front=32, eval_max_steps=HOPPER_EPISODE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nets = (state.actor, state.critic.net, state.critic.target_net)
+    if state.global_step != CAPQL_STEPS or state.buffer.size != state.global_step or not all(map(_params_finite, nets)):
+        raise AssertionError(f"global_step {state.global_step}, buffer size {state.buffer.size}, or non-finite params")
+    l1 = state.behavior_w.abs().sum(dim=1)
+    if not bool(torch.allclose(l1, torch.ones_like(l1), atol=1e-5)):
+        raise AssertionError(f"behaviour weights with L1 norms {l1.tolist()}")
+    host = agent._last_metrics
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
+    log(f"[capql] CAPQL.train {state.global_step} steps in {wall:.2f} s; {each}; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host, HOPPER_REF_POINT)
+
+
+def _round_split(timer: "PhaseTimer", names: tuple, state, wall: float, rounds: int, what: str) -> str:
+    """ms a round of a PCN-style train loop, split into its timed phases (the medians)."""
+    med = {n: 1e3 * statistics.median(dt for dt, _ in timer.calls[n]) for n in names}
+    split = ", ".join(f"{n} {v:.1f} ms (x{len(timer.calls[n])})" for n, v in med.items())
+    return f"[{what}] {rounds} rounds, {state.global_step} steps in {wall:.2f} s; a round {sum(med.values()):.1f} ms: {split}"
+
+
+PCN_PHASES = ("update_model", "choose_commands", "collect_episodes", "add_episodes")
+
+
+def _profile_round(agent, state, what: str, smi: str) -> None:
+    before = state.global_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train_round(state)
+    torch.cuda.synchronize()
+    ms, steps = 1e3 * (time.perf_counter() - t0), state.global_step - before
+    log(f"[{what}] one round {ms:.1f} ms, {steps} env steps, {steps / (ms / 1e3):.0f} env-steps/s [{smi}]")
+    # the device alone: a PCN round is tens of thousands of launches, whose host events would cost more than the round
+    prof = profile_window(lambda: agent.train_round(state), f"{what} 1 round", cpu=False)
+    if prof:
+        log(f"[{what}] {prof['launches']} launches a round, device busy {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the round")
+
+
+def phase_pcn(smi: str) -> int:
+    """``PCN.train`` on deterministic minecart at the example's config, each
+    round split into update, commands, collect and add; the buffer's returns
+    (distinct rows) scored on the card; one greedy ``eval_commands`` of 8
+    commands.  At this depth no episode brings ore home, so the front is one
+    point: the phase shows that the path runs, not that it learns."""
+    agent = PCN(make("minecart-deterministic-v0"), PCN_CONFIG)
+    state = agent.init_state()
+    timer = PhaseTimer()
+    for name in PCN_PHASES[:3]:
+        timer.wrap(agent, name)
+    timer.wrap(state.buffer, "add_episodes")
+    t0 = time.perf_counter()
+    agent.train(total_timesteps=PCN_STEPS, ref_point=REF_POINT, num_er_episodes=PCN_ER_EPISODES, eval_freq=PCN_EVAL_FREQ,
+                state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds = len(timer.calls["update_model"])
+    episodes = PCN_ER_EPISODES + rounds * PCN_CONFIG.num_envs
+    if state.global_step < PCN_STEPS or state.buffer.size != min(episodes, PCN_CONFIG.max_buffer_episodes) or not _params_finite(state.model):
+        raise AssertionError(f"global_step {state.global_step}, buffer of {state.buffer.size} after {episodes} episodes, "
+                             "or non-finite params")
+    host = agent._last_metrics
+    log(_round_split(timer, PCN_PHASES, state, wall, rounds, "pcn") + "; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items())
+        + f" [{smi}]")
+    cmds = agent.choose_commands(state.buffer, 8, seed=0)
+    t0 = time.perf_counter()
+    returns = agent.eval_commands(state.model, cmds, torch.Generator(agent.device).manual_seed(0)).cpu().numpy()
+    if returns.shape != (8, 3) or not np.isfinite(returns).all():
+        raise AssertionError(f"eval_commands returned {returns}")
+    log(f"[pcn] eval_commands of 8 commands in {1e3 * (time.perf_counter() - t0):.0f} ms: commands "
+        f"{np.round(cmds.cpu().numpy(), 3).tolist()}, returns {np.round(returns, 3).tolist()}")
+    _profile_round(agent, state, "pcn", smi)
+    if len(np.unique(agent._last_front, axis=0)) < 2:
+        raise AssertionError(f"the buffer's returns are one point: {agent._last_front[:1].tolist()}")
+    return score_on_card(agent._last_front, host, REF_POINT)
+
+
+def phase_lcn(smi: str) -> int:
+    """``LCN.train`` on fruit-tree at the example's config, each round split as
+    PCN's, the host's 6-D hypervolume timed; the buffer's 6-D front scored on
+    the card (cardinality and EUM held against the host's)."""
+    agent = LCN(make("fruit-tree-v0"), LCN_CONFIG)
+    state = agent.init_state()
+    timer = PhaseTimer()
+    for name in PCN_PHASES[:3]:
+        timer.wrap(agent, name)
+    timer.wrap(state.buffer, "add_episodes")
+    host_hv = evaluation_module.hypervolume
+    timer.wrap(evaluation_module, "hypervolume", keep=float)
+    try:
+        t0 = time.perf_counter()
+        agent.train(total_timesteps=LCN_STEPS, ref_point=np.zeros(6), num_er_episodes=LCN_ER_EPISODES,
+                    eval_freq=LCN_EVAL_FREQ, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        evaluation_module.hypervolume = host_hv
+    rounds = len(timer.calls["update_model"])
+    if state.global_step < LCN_STEPS or len(timer.calls["hypervolume"]) != 2 or not _params_finite(state.model):
+        raise AssertionError(f"global_step {state.global_step}, {len(timer.calls['hypervolume'])} evaluations, or non-finite params")
+    hv = ", ".join(f"{hv:.6g} in {1e3 * dt:.0f} ms" for dt, hv in timer.calls["hypervolume"])
+    front = agent._last_front
+    log(_round_split(timer, PCN_PHASES, state, wall, rounds, "lcn") + f"; host 6-D hypervolume of the {len(front)}-episode "
+        f"front: {hv}; " + ", ".join(f"{k}={v:.6g}" for k, v in agent._last_metrics.items()) + f" [{smi}]")
+    _profile_round(agent, state, "lcn", smi)
+    return score_on_card(front, agent._last_metrics, np.zeros(6))
+
+
+def phase_ipro(smi: str) -> int:
+    """``IPRO.train`` on deep-sea-treasure at the example's config, cut to 10
+    NL-MOPPO iterations an oracle call and 2 outer iterations: each oracle
+    call's time, an NL-MOPPO iteration split into rollout, update and
+    evaluation; the init phase's two extrema must differ; the front scored on
+    the card (the 2-D HV held against the host's)."""
+    ipro = IPRO(make("deep-sea-treasure-v0"), IPRO_CONFIG)
+    timer = PhaseTimer()
+    for name in ("train", "rollout", "update", "policy_evaluate"):
+        timer.wrap(ipro.agent, name)
+    t0 = time.perf_counter()
+    pf = ipro.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    extrema, front = np.unique(np.stack(ipro._init_pf), axis=0), np.stack(pf)
+    if len(extrema) < 2 or len(np.unique(front, axis=0)) < 2:
+        raise AssertionError(f"the oracle collapsed: init-phase extrema {extrema.tolist()}, front {front.tolist()}")
+    if not 0.0 <= ipro.coverage <= 1.0 or not _params_finite(ipro._state.net):
+        raise AssertionError(f"coverage {ipro.coverage}, or non-finite params")
+    ppo = IPRO_CONFIG.ppo
+    med = {n: 1e3 * statistics.median(dt for dt, _ in timer.calls[n]) for n in ("rollout", "update", "policy_evaluate")}
+    calls = ", ".join(f"{dt:.2f} s" for dt, _ in timer.calls["train"])
+    host = multi_policy_metrics(front, DST_REF_POINT, equally_spaced_weights(2, 32))
+    log(f"[ipro] deep-sea-treasure NL-MOPPO num_envs={ppo.num_envs} num_steps={ppo.num_steps} epochs={ppo.update_epochs} "
+        f"minibatches={ppo.num_minibatches}: IPRO.train in {wall:.2f} s, {len(timer.calls['train'])} oracle calls ({calls}); "
+        f"an NL-MOPPO iteration: rollout {med['rollout']:.1f} ms ({ppo.num_envs * ppo.num_steps / (med['rollout'] / 1e3):.0f} "
+        f"env-steps/s), update {med['update']:.1f} ms, evaluation {med['policy_evaluate']:.1f} ms "
+        f"(x{len(timer.calls['policy_evaluate'])}); extrema {np.round(extrema, 4).tolist()}, front {np.round(front, 4).tolist()}, coverage {ipro.coverage:.4f}, "
+        f"replays {ipro.replay_triggered}; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    u = make_linear_u([0.5, 0.5], ipro.device)
+    prof = profile_window(lambda: ipro.agent.train_iteration(ipro._state, u), "ipro 1 NL-MOPPO iteration")
+    if prof:
+        log(f"[ipro] {prof['launches']} launches an NL-MOPPO iteration, device busy {100 * prof['busy_ms'] / prof['wall_ms']:.1f}%")
+    return score_on_card(front, host, DST_REF_POINT)
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -1086,6 +1316,10 @@ def main() -> int:
         "mpmoql": lambda: phase_mpmoql(smi),
         "pql": lambda: phase_pql(smi),
         "eupg": lambda: phase_eupg(smi),
+        "capql": lambda: phase_capql(smi),
+        "pcn": lambda: phase_pcn(smi),
+        "lcn": lambda: phase_lcn(smi),
+        "ipro": lambda: phase_ipro(smi),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}

@@ -1,6 +1,15 @@
 """Core MORL math: Pareto ops, weights, scalarization, indicators, archives."""
 
-from .pareto import filter_pareto_dominated, get_non_dominated_inds, non_dominated_mask
+from .pareto import (
+    batched_pareto_dominates,
+    filter_pareto_dominated,
+    get_non_dominated_inds,
+    lorenz_dominates,
+    lorenz_vector,
+    non_dominated_mask,
+    pareto_dominates,
+    strict_pareto_dominates,
+)
 from .indicators import (
     cardinality,
     expected_utility,
@@ -20,6 +29,7 @@ from .weights import equally_spaced_weights, extrema_weights, random_weights
 __all__ = [
     "DeviceParetoFront",
     "ParetoArchive",
+    "batched_pareto_dominates",
     "cardinality",
     "equally_spaced_weights",
     "expected_utility",
@@ -32,10 +42,14 @@ __all__ = [
     "hypervolume_mc",
     "hypervolume_small_exact",
     "igd",
+    "lorenz_dominates",
+    "lorenz_vector",
     "maximum_utility_loss",
     "non_dominated_mask",
+    "pareto_dominates",
     "random_weights",
     "sparsity",
+    "strict_pareto_dominates",
     "tchebicheff",
     "update_utopian",
     "weighted_sum",

@@ -155,10 +155,13 @@ def _hv_wfg(points: np.ndarray, ref: np.ndarray) -> float:
         if len(p) <= 1:
             return p
         keep = np.ones(len(p), dtype=bool)
+        earlier = np.arange(len(p))
         for i in range(len(p)):
             if not keep[i]:
                 continue
-            dom = np.all(p >= p[i], axis=-1) & np.any(p > p[i], axis=-1)
+            # an earlier exact copy counts as dominating: a copy adds no volume, but each
+            # one kept doubles the recursion below it
+            dom = np.all(p >= p[i], axis=-1) & (np.any(p > p[i], axis=-1) | (earlier < i))
             dom[~keep] = False
             if dom.any():
                 keep[i] = False

@@ -14,6 +14,37 @@ import numpy as np
 import torch
 
 
+def pareto_dominates(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True iff ``a`` Pareto-dominates ``b`` (>= everywhere, > somewhere);
+    broadcasts over leading dims."""
+    return torch.all(a >= b, dim=-1) & torch.any(a > b, dim=-1)
+
+
+def strict_pareto_dominates(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True iff ``a`` > ``b`` in every objective (reference pareto.py:29-31)."""
+    return torch.all(a > b, dim=-1)
+
+
+def batched_pareto_dominates(a: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``pareto_dominates(a, p)`` for each row p of ``points``."""
+    return pareto_dominates(a[None, :], points)
+
+
+def lorenz_vector(points: torch.Tensor, lmbda: float = 1.0) -> torch.Tensor:
+    """Lorenz transform: cumulative sum of the ascending-sorted objectives.
+
+    x Lorenz-dominates y iff lorenz(x) Pareto-dominates lorenz(y) (LCN,
+    reference lcn.py:26-45); ``lmbda`` < 1 interpolates toward the plain
+    objectives: ``lmbda * lorenz + (1 - lmbda) * points``.
+    """
+    lz = torch.cumsum(torch.sort(points, dim=-1).values, dim=-1)
+    return lmbda * lz + (1.0 - lmbda) * points
+
+
+def lorenz_dominates(a: torch.Tensor, b: torch.Tensor, lmbda: float = 1.0) -> torch.Tensor:
+    return pareto_dominates(lorenz_vector(a, lmbda), lorenz_vector(b, lmbda))
+
+
 def non_dominated_mask(
     points: torch.Tensor,
     valid: torch.Tensor | None = None,

@@ -3,6 +3,7 @@
 from .base import Box, Discrete, MOEnv, StepOut
 from .dst import DeepSeaTreasure
 from .fishwood import Fishwood, fishwood_utility
+from .fruit_tree import FruitTree
 from .minecart import Minecart
 from .mountaincar import MOMountainCar, MOMountainCarContinuous
 from .planar import MOHalfCheetahJX, MOHopperJX, PlanarState
@@ -17,6 +18,7 @@ __all__ = [
     "ENV_REGISTRY",
     "EpisodeStats",
     "Fishwood",
+    "FruitTree",
     "MOEnv",
     "MOHalfCheetahJX",
     "MOHopperJX",

@@ -11,6 +11,7 @@ from typing import Callable, Dict
 from .base import MOEnv
 from .dst import DeepSeaTreasure
 from .fishwood import Fishwood
+from .fruit_tree import FruitTree
 from .minecart import Minecart
 from .mountaincar import MOMountainCar, MOMountainCarContinuous
 from .planar import MOHalfCheetahJX, MOHopperJX
@@ -20,6 +21,7 @@ ENV_REGISTRY: Dict[str, Callable[..., MOEnv]] = {
     "deep-sea-treasure-v0": lambda **kw: DeepSeaTreasure(dst_map="convex", **kw),
     "deep-sea-treasure-concave-v0": lambda **kw: DeepSeaTreasure(dst_map="concave", **kw),
     "fishwood-v0": Fishwood,
+    "fruit-tree-v0": FruitTree,
     "minecart-v0": lambda **kw: Minecart(deterministic=False, **kw),
     "minecart-deterministic-v0": lambda **kw: Minecart(deterministic=True, **kw),
     "water-reservoir-v0": WaterReservoir,

@@ -10,7 +10,8 @@ mosac_continuous_action.py:28-115):
 - ``DeterministicActor`` and ``ContinuousQNet``: the plain ReLU versions;
   ``ContinuousQNet(weight_conditioned=False)`` is MOSAC's Q(s, a) critic;
 - ``SquashedGaussianActor``: MOSAC's tanh-squashed Gaussian policy, with
-  ``members`` for a population (outputs (members, B, A)).
+  ``members`` for a population (outputs (members, B, A)), and CAPQL's
+  weight-conditioned one with ``reward_dim``.
 
 The layer order is the JAX package's.  ``train=True`` normalizes with batch
 statistics and updates the BatchRenorm running statistics; dropout runs only
@@ -164,12 +165,15 @@ class ContinuousQNet(nn.Module):
 
 
 class SquashedGaussianActor(nn.Module):
-    """pi(a|s): tanh-squashed Gaussian (reference mosac_continuous_action.py:69-115).
+    """pi(a|s[, w]): tanh-squashed Gaussian (reference mosac_continuous_action.py:69-115).
 
     ReLU trunk, then a mean head and a log-std head; the log-std is squashed
     into [LOG_STD_MIN, LOG_STD_MAX] through tanh.  With ``members`` the input
     is (members, B, obs_dim) (or (B, obs_dim), shared) and the outputs are
-    (members, B, A).
+    (members, B, A).  ``weight_conditioned=True`` conditions the policy on a
+    weight of ``reward_dim`` objectives, as ``ContinuousQNet``'s flag does: the
+    trunk takes obs ⊕ w (CAPQL, reference capql.py:69-140).  The default is
+    MOSAC's pi(a|s).
     """
 
     def __init__(
@@ -179,16 +183,24 @@ class SquashedGaussianActor(nn.Module):
         hidden: Sequence[int] = (256, 256),
         members: int | None = None,
         gen: torch.Generator | None = None,
+        reward_dim: int = 0,
+        weight_conditioned: bool = False,
     ):
         super().__init__()
-        self.mlp = MLP(obs_dim, hidden, gen=gen, members=members)
+        if weight_conditioned and reward_dim < 1:
+            raise ValueError("a weight-conditioned actor needs reward_dim >= 1")
+        self.weight_conditioned = weight_conditioned
+        in_features = obs_dim + (reward_dim if weight_conditioned else 0)
+        self.mlp = MLP(in_features, hidden, gen=gen, members=members)
         head = (lambda: dense(hidden[-1], action_dim, gen)) if members is None else (
             lambda: EnsembleDense(members, hidden[-1], action_dim, gen)
         )
         self.mean, self.log_std = head(), head()
 
-    def forward(self, obs):
-        x = self.mlp(obs)
+    def forward(self, obs, w=None):
+        if (w is not None) != self.weight_conditioned:
+            raise ValueError("pass w exactly when the actor is weight-conditioned")
+        x = self.mlp(torch.cat([obs, w], dim=-1) if self.weight_conditioned else obs)
         log_std = torch.tanh(self.log_std(x))
         return self.mean(x), LOG_STD_MIN + 0.5 * (LOG_STD_MAX - LOG_STD_MIN) * (log_std + 1.0)
 

@@ -72,8 +72,8 @@ class ReplayBuffer:
         return self
 
     def gather(self, idx: torch.Tensor) -> Transition:
-        """The rows at ``idx``."""
-        return Transition(*(x[idx] for x in self.data))
+        """The rows at ``idx``, as the storage's own row type."""
+        return type(self.data)(*(x[idx] for x in self.data))
 
     def sample(self, gen: torch.Generator, batch_size: int, use_cer: bool = False) -> Transition:
         """Uniform sample of batch_size transitions (with replacement).

@@ -259,6 +259,21 @@ def test_host_hypervolume(d):
     assert tind.hypervolume(np.zeros((0, d)), ref) == 0.0
 
 
+@pytest.mark.parametrize("d", [3, 6])
+def test_host_hypervolume_with_copies(d):
+    """A front of many exact copies (a PCN/LCN buffer holds one row per
+    episode): the same volume as its distinct rows and as the JAX package's,
+    rtol 1e-9.  The recursion drops the copies (each one kept would double
+    the work below it)."""
+    rng = np.random.default_rng(10 + d)
+    distinct = np.abs(rng.normal(size=(16, d))) + 0.1
+    front = distinct[rng.integers(0, 16, size=96)]
+    ref = np.zeros(d)
+    got = tind.hypervolume(front, ref)
+    np.testing.assert_allclose(got, tind.hypervolume(np.unique(front, axis=0), ref), rtol=1e-9)
+    np.testing.assert_allclose(got, jind.hypervolume(front, ref), rtol=1e-9)
+
+
 def test_device_hypervolumes():
     rng = np.random.default_rng(0)
     for d, fn_t, fn_j in ((2, tind.hypervolume_2d, jind.hypervolume_2d), (3, tind.hypervolume_3d, jind.hypervolume_3d)):

@@ -16,14 +16,21 @@ import pytest
 import torch
 
 from morl_baselines_torch.agents import (
+    CAPQL,
     EUPG,
     GPILS,
     GPIPD,
+    IPRO,
+    IPRO2D,
+    LCN,
     MOPPO,
     MORLD,
     MOSAC,
+    NLMOPPO,
+    PCN,
     PGMORL,
     PQL,
+    CAPQLConfig,
     Envelope,
     EUPGConfig,
     EnvelopeConfig,
@@ -33,6 +40,8 @@ from morl_baselines_torch.agents import (
     GPIPDConfig,
     GPIPDContinuous,
     GPIPDContinuousConfig,
+    IPROConfig,
+    LCNConfig,
     MOPPOConfig,
     MOQLearning,
     MOQLearningConfig,
@@ -40,6 +49,8 @@ from morl_baselines_torch.agents import (
     MOSACConfig,
     MPMOQLConfig,
     MPMOQLearning,
+    NLMOPPOConfig,
+    PCNConfig,
     PGMORLConfig,
     PQLConfig,
 )
@@ -73,6 +84,8 @@ def test_port_imports_no_jax():
     assert got["modules"] >= 20, got
     assert got["leaked"] == [], f"the port pulled in {got['leaked']}"
     later = {f"morl_baselines_torch.agents.{m}" for m in ("moppo", "pgmorl", "mosac", "morld", "moql", "mpmoql", "pql", "eupg")}
+    later |= {f"morl_baselines_torch.agents.{m}" for m in ("pcn", "lcn", "capql", "nlmoppo", "ipro")}
+    later |= {"morl_baselines_torch.replay.episodic", "morl_baselines_torch.envs.fruit_tree"}
     assert later <= set(got["names"]), later - set(got["names"])
 
 
@@ -158,3 +171,31 @@ def test_tabular_and_esr_entry_points_need_cuda_by_default(monkeypatch):
         state = agent.init_state()
         table = {MOQLearning: "q_table", PQL: "q_sets"}.get(cls)
         assert state.obs.device.type == "cpu" and (table is None or getattr(state, table).device.type == "cpu")
+
+
+def test_multi_policy_entry_points_need_cuda_by_default(monkeypatch):
+    """PCN, LCN, CAPQL, NL-MOPPO, IPRO and IPRO-2D ask for CUDA unless told
+    otherwise, and raise without it; on the CPU, when asked, their states
+    live there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dst, fruit, car = make("deep-sea-treasure-v0"), make("fruit-tree-v0"), make("mo-mountaincarcontinuous-v0")
+    ppo = NLMOPPOConfig(num_envs=4, num_steps=8, hidden=(8,))
+    makers = {
+        PCN: lambda **kw: PCN(dst, PCNConfig(num_envs=4, max_episode_len=8, hidden_dim=8), **kw),
+        LCN: lambda **kw: LCN(fruit, LCNConfig(num_envs=4, max_episode_len=8, hidden_dim=8, scaling_factor=(0.1,) * 7), **kw),
+        CAPQL: lambda **kw: CAPQL(car, CAPQLConfig(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,)), **kw),
+        NLMOPPO: lambda **kw: NLMOPPO(dst, ppo, **kw),
+        IPRO: lambda **kw: IPRO(dst, IPROConfig(ppo=ppo), **kw),
+        IPRO2D: lambda **kw: IPRO2D(dst, IPROConfig(ppo=ppo), **kw),
+    }
+    for cls, make_agent in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_agent()
+        agent = make_agent(device="cpu")
+        assert agent.device.type == "cpu"
+        if cls in (IPRO, IPRO2D):
+            assert agent.agent.device.type == "cpu" and agent.agent.init_state().obs.device.type == "cpu"
+            continue
+        state = agent.init_state()
+        where = state.buffer.data.obs if cls in (PCN, LCN) else state.obs
+        assert where.device.type == "cpu"
