@@ -59,7 +59,24 @@ host's 6-D hypervolume; ``[ipro]`` runs ``IPRO.train`` on deep-sea-treasure
 (``examples/ipro_dst.py``: the NL-MOPPO oracle of 64 envs x 128 steps), each
 oracle call and each NL-MOPPO iteration's rollout, update and evaluation
 timed.  Each of the four scores its front on the card (3-D, 3-D, 6-D and
-2-D); the kernel's inputs include d = 6 rows for LCN's fronts.
+2-D); the kernel's inputs include d = 6 rows for LCN's fronts.  Then the
+discrete and pixel paths and their envs: ``[envs]`` steps the landers,
+four-room, resource-gathering, breakable-bottles, both highways and the
+pixel DST at 4096 envs (the pixel stack at 256) with random actions, ms
+and launches a step, observations and
+rewards in their bounds, and lands 256 landers with the PD heuristic (at
+least 90% must land); ``[morld_lunar_step]`` times the vectorized MORL/D
+round of ``examples/morld_lunar_lander.py`` (6 MOSACDiscrete members of 8
+envs, (256,)*4, batch 128, 10 cooperation passes; 128 iterations a round)
+and ``[morld_lunar_train]`` runs ``MORLD.train`` for 2 rounds with PSA;
+``[envelope_pixel]`` times Envelope's ``train_segment`` with the NatureCNN
+trunk on the pixel DST under the mario wrapper stack
+(``examples/envelope_pixel_dst.py``: 64 envs, a 50k float32 frame buffer,
+batch 64, 4 sampled weights), logs the peak device memory and runs
+``Envelope.train`` with one evaluation; ``[pql_four_room]`` runs PQL with
+hypervolume action scoring at d = 3 on four-room.  Each of the three scores
+its front on the card (4-D, 2-D, 3-D); the kernel's inputs include d = 4
+rows for the lander's archive.
 MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
@@ -119,8 +136,8 @@ from morl_baselines_torch.agents import (
 )
 from morl_baselines_torch.agents.ipro import make_linear_u
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
-from morl_baselines_torch.envs import fishwood_utility, make
-from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics
+from morl_baselines_torch.envs import VectorMOEnv, fishwood_utility, lander_heuristic, make
+from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics, rollout_episode
 from morl_baselines_torch.evaluation import evaluation as evaluation_module
 from morl_baselines_torch.ops import _build
 from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
@@ -242,6 +259,45 @@ IPRO_CONFIG = IPROConfig(
     ppo=NLMOPPOConfig(num_envs=64, num_steps=128, update_epochs=4, num_minibatches=4, gamma=0.995, ent_coef=0.05,
                       ent_coef_start=0.15),
 )
+
+
+# the envs of the discrete and pixel paths, stepped with random actions: (envs, whether observations stay inside the
+# observation box, reward bounds per objective). The bounds are the env modules' documented rewards; the lander's shaped
+# reward is a potential difference, left unbounded, and its observation box is the upstream's nominal range, which it leaves
+NEW_ENVS = {
+    "mo-lunar-lander-v3": (4096, False, (-100.0, -math.inf, -0.3, -0.03), (100.0, math.inf, 0.0, 0.0)),
+    "mo-lunar-lander-continuous-v3": (4096, False, (-100.0, -math.inf, -0.3, -0.03), (100.0, math.inf, 0.0, 0.0)),
+    "four-room-v0": (4096, True, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
+    "resource-gathering-v0": (4096, True, (-1.0, 0.0, 0.0), (0.0, 1.0, 1.0)),
+    "breakable-bottles-v0": (4096, True, (-1.0, 0.0, -1.0), (-1.0, 25.0, 0.0)),
+    "mo-highway-jx-v0": (4096, True, (0.0, 0.0, -1.0), (1.0, 1.0, 0.0)),
+    "mo-highway-fast-jx-v0": (4096, True, (0.0, 0.0, -1.0), (1.0, 1.0, 0.0)),
+    "deep-sea-treasure-pixel-v0": (4096, True, (0.0, -1.0), (23.7, -1.0)),
+    "deep-sea-treasure-pixel-stack-v0": (256, True, (0.0, -4.0), (23.7, -1.0)),  # 4 sub-steps a step
+}
+ENV_STEPS = 100
+LANDERS = 256  # the heuristic's landing check (tests/test_envs.py::test_lunar_lander_heuristic_lands: >= 90% land)
+
+# examples/morld_lunar_lander.py: pop 6, 8 envs, shared buffer of 200k, batch 128, learning_starts 1000, (256,)*4,
+# 10 cooperation passes, PSA; ref (-101, -1001, -101, -101).  A round cut to 128 iterations (exchange_every 1024 of
+# 5000): learning starts in the first round's 125th iteration, so every timed round updates
+MORLD_LUNAR_CONFIG = MORLDConfig(
+    pop_size=POP, vectorized=True, exchange_every=128 * 8, neighborhood_size=1, update_passes=10,
+    weight_adaptation_method="PSA",
+    sac=MOSACConfig(num_envs=8, buffer_size=200_000, batch_size=128, learning_starts=1000, hidden=(256, 256, 256, 256)),
+)
+LUNAR_REF_POINT = np.array([-101.0, -1001.0, -101.0, -101.0])
+# examples/envelope_pixel_dst.py: 64 envs, buffer 50k, batch 64, (256, 256), NatureCNN on (4, 84, 84), 4 sampled
+# weights, learning_starts 1000, epsilon over 20k steps, gamma 0.98; ref (0, -50).  Cut to 40 iterations of 200k steps
+PIXEL_CONFIG = EnvelopeConfig(num_envs=64, buffer_size=50_000, batch_size=64, hidden=(256, 256), image_shape=(4, 84, 84),
+                              num_sample_w=4, learning_starts=1000, epsilon_decay_steps=20_000, gamma=0.98)
+PIXEL_SEG_ITERS = 20  # timed iterations of train_segment after learning_starts
+PIXEL_TRAIN_STEPS = 40 * 64
+# tests/test_agents_multi.py::test_pql_3obj_hypervolume_scoring: four-room, K = 4, gamma 0.95, epsilon over 400
+# steps, hypervolume action scoring at d = 3, 800 steps, ref (-1, -1, -1)
+PQL4_CONFIG = PQLConfig(gamma=0.95, set_capacity=4, epsilon_decay_steps=400, action_eval="hypervolume")
+PQL4_STEPS = 800
+FOUR_ROOM_REF_POINT = np.array([-1.0, -1.0, -1.0])
 
 
 def log(msg: str) -> None:
@@ -374,10 +430,12 @@ ND_INPUTS = [
     ("inf", 200, 3), ("inf", 3000, 3),
     # d = 6, LCN's fruit-tree fronts: one block (the buffer's 128 episodes) and chunked
     ("front", 128, 6), ("random", 128, 6), ("front", 8192, 6), ("random", 8192, 6),
+    # d = 4, the lander's MORL/D archive: one block and chunked
+    ("front", 96, 4), ("random", 96, 4), ("front", 8192, 4), ("random", 8192, 4),
 ]  # fmt: skip
 # timed: the main path's archive add (N=96), archive-scale inputs, and d = 6 at LCN's buffer size and above
 ND_TIMED = {("random", 96, 3), ("random", 8192, 3), ("random", 131072, 3), ("front", 131072, 3), ("archive_add", 131072, 3),
-            ("front", 128, 6), ("front", 8192, 6), ("random", 8192, 6)}
+            ("front", 128, 6), ("front", 8192, 6), ("random", 8192, 6), ("front", 96, 4), ("front", 8192, 4)}
 
 
 def device_ms(fn, name: str = "nd_mask", calls: int = 20) -> float | None:
@@ -488,7 +546,7 @@ def phase_train_segment(smi: str) -> None:
     profile_window(lambda: agent.train_segment(state, 3), "3 iters")
 
 
-def profile_window(fn, what: str, cpu: bool = True) -> dict | None:
+def profile_window(fn, what: str, cpu: bool = True, top: int = 8) -> dict | None:
     """Device busy share and the costliest kernels over one call of ``fn``;
     returns {busy_ms, wall_ms, launches}, or None when the trace holds no device time.
     ``cpu=False`` traces the device alone, for a window of hundreds of
@@ -517,7 +575,7 @@ def profile_window(fn, what: str, cpu: bool = True) -> dict | None:
     n_launch = sum(e.count for e in events)
     log(f"[profile] {what}: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch} kernel launches")
-    for e in sorted(events, key=_device_us, reverse=True)[:8]:
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
         log(f"[profile]   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return dict(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3, launches=n_launch)
 
@@ -905,15 +963,19 @@ def phase_pgmorl_train(smi: str) -> int:
     return score_on_card(agent._last_front, host, CHEETAH_REF_POINT)
 
 
-def phase_morld_step(smi: str) -> None:
-    """The vectorized MORL/D round at bench.py's accelerator config
-    (``_pop_step``): 32 act-step-store-update iterations of all 6 members, then
-    5 neighbour-batch cooperation passes.  One warm-up round, 2 timed, one profiled."""
-    algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+def phase_morld_step(smi: str, env_id: str = "mo-halfcheetah-jx-v5", cfg: MORLDConfig = MORLD_CONFIG,
+                     tag: str = "morld_step") -> None:
+    """The vectorized MORL/D round (``_pop_step``): ``exchange_every //
+    num_envs`` act-step-store-update iterations of all 6 members, then the
+    neighbour-batch cooperation passes; at bench.py's accelerator config on
+    the halfcheetah (MOSAC members), at the example's on the lander
+    (MOSACDiscrete members).  One warm-up round, 2 timed, one profiled."""
+    algo = MORLD(make(env_id), cfg)
     agent = algo.population[0]
+    envs, seg_iters = cfg.sac.num_envs, cfg.exchange_every // cfg.sac.num_envs
     state, buffer = agent.init_state(list(range(POP))), agent.make_buffer(POP)
     weights = torch.as_tensor(np.stack(algo.weights), device=agent.device)
-    step = lambda: algo._pop_step(state, buffer, weights, MORLD_SEG_ITERS, MORLD_CONFIG.update_passes)  # noqa: E731
+    step = lambda: algo._pop_step(state, buffer, weights, seg_iters, cfg.update_passes)  # noqa: E731
     step()
     torch.cuda.synchronize()
     rounds = 2
@@ -922,42 +984,44 @@ def phase_morld_step(smi: str) -> None:
         step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    n = (rounds + 1) * MORLD_SEG_ITERS
-    if state.iter_count != n or buffer.size != min(n * MORLD_ENVS, buffer.capacity):
+    n = (rounds + 1) * seg_iters
+    if state.iter_count != n or buffer.size != min(n * envs, buffer.capacity):
         raise AssertionError(f"iter_count {state.iter_count}, buffer size {buffer.size}")
     if not all(_params_finite(net) for net in (state.actor, state.critic.net, state.critic.target_net)):
         raise AssertionError("non-finite actor or critic params")
-    log(f"[morld_step] mo-halfcheetah pop={POP} num_envs={MORLD_ENVS} hidden={MORLD_CONFIG.sac.hidden} "
-        f"batch={MORLD_CONFIG.sac.batch_size} seg_iters={MORLD_SEG_ITERS} update_passes={MORLD_CONFIG.update_passes}: "
-        f"{1e3 * dt / rounds:.1f} ms/round, {rounds * POP * MORLD_SEG_ITERS * MORLD_ENVS / dt:.0f} env-steps/s, "
+    log(f"[{tag}] {env_id} {type(agent).__name__} pop={POP} num_envs={envs} hidden={cfg.sac.hidden} "
+        f"batch={cfg.sac.batch_size} seg_iters={seg_iters} update_passes={cfg.update_passes}: "
+        f"{1e3 * dt / rounds:.1f} ms/round, {1e3 * dt / rounds / seg_iters:.2f} ms/iteration, "
+        f"{rounds * POP * seg_iters * envs / dt:.0f} env-steps/s, "
         f"alpha {[round(x, 4) for x in state.log_alpha.detach().exp().tolist()]} [{smi}]")
-    prof = profile_window(step, "morld 1 round", cpu=False)
+    prof = profile_window(step, f"{tag} 1 round", cpu=False)
     if prof:
-        log(f"[morld_step] device busy {prof['busy_ms']:.2f} ms = {100 * prof['busy_ms'] * rounds / (1e3 * dt):.1f}% "
-            f"of the timed round; {prof['launches']} launches a round")
+        log(f"[{tag}] device busy {prof['busy_ms']:.2f} ms = {100 * prof['busy_ms'] * rounds / (1e3 * dt):.1f}% "
+            f"of the timed round; {prof['launches']} launches a round, {prof['launches'] / seg_iters:.0f} an iteration")
 
 
-def phase_morld_train(smi: str) -> int:
+def phase_morld_train(smi: str, env_id: str = "mo-halfcheetah-jx-v5", cfg: MORLDConfig = MORLD_CONFIG,
+                      ref_point: np.ndarray = CHEETAH_REF_POINT, tag: str = "morld_train") -> int:
     """``MORLD.train`` vectorized: 2 rounds with the neighbour transfer after
     the first, PSA, each round's 18 evaluation episodes of ``POP_EVAL_STEPS``
     steps; the archive front scored on the card."""
-    algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+    algo = MORLD(make(env_id), cfg)
     timer = PhaseTimer()
     timer.wrap(algo, "_pop_step")
     timer.wrap(algo.population[0], "policy_eval")
+    total = 2 * POP * cfg.exchange_every
     t0 = time.perf_counter()
-    state = algo.train(total_timesteps=2 * POP * MORLD_SEG_ITERS * MORLD_ENVS, ref_point=CHEETAH_REF_POINT,
-                       eval_max_steps=POP_EVAL_STEPS)
+    state = algo.train(total_timesteps=total, ref_point=ref_point, eval_max_steps=POP_EVAL_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if len(timer.calls["_pop_step"]) != 2 or not len(algo.archive) or not _params_finite(state.actor):
         raise AssertionError(f"rounds {len(timer.calls['_pop_step'])}, archive of {len(algo.archive)}, or non-finite params")
     host = algo._last_metrics
     each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
-    log(f"[morld_train] MORLD.train {2 * POP * MORLD_SEG_ITERS * MORLD_ENVS} steps in {wall:.2f} s; {each}; "
-        f"archive of {len(algo.archive)}, weights {[[round(float(x), 3) for x in w] for w in algo.weights]}; "
+    log(f"[{tag}] MORLD.train {total} steps in {wall:.2f} s; {each}; archive of {len(algo.archive)}, "
+        f"weights {[[round(float(x), 3) for x in w] for w in algo.weights]}; front {algo._last_front.round(3).tolist()}; "
         + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
-    return score_on_card(algo._last_front, host, CHEETAH_REF_POINT)
+    return score_on_card(algo._last_front, host, ref_point)
 
 
 def phase_moql(smi: str) -> None:
@@ -1015,37 +1079,39 @@ def phase_mpmoql(smi: str) -> int:
     return score_on_card(np.stack(agent.ccs), host, DST_REF_POINT)
 
 
-def phase_pql(smi: str) -> int:
-    """``PQL.train`` at the example's config for ``PQL_STEPS`` steps; then a
-    profiled window of 20 steps, the local PCS at the start state scored on
-    the card, and ``track_policy`` of its max-treasure point."""
-    env = make("deep-sea-treasure-v0")
-    agent = PQL(env, DST_REF_POINT, PQL_CONFIG)
+def phase_pql(smi: str, env_id: str = "deep-sea-treasure-v0", cfg: PQLConfig = PQL_CONFIG, steps: int = PQL_STEPS,
+              ref_point: np.ndarray = DST_REF_POINT, tag: str = "pql") -> int:
+    """``PQL.train`` for ``steps`` steps; then a profiled window of 20 steps,
+    the local PCS at the start state scored on the card, and
+    ``track_policy`` of its point with the largest first objective."""
+    env = make(env_id)
+    agent = PQL(env, ref_point, cfg)
     timer = PhaseTimer()
     timer.wrap(agent, "train_segment")
     t0 = time.perf_counter()
-    state = agent.train(total_timesteps=PQL_STEPS, ref_point=DST_REF_POINT,
-                        known_pareto_front=env.pareto_front(PQL_CONFIG.gamma), eval_freq=PQL_STEPS)
+    state = agent.train(total_timesteps=steps, ref_point=ref_point, known_pareto_front=env.pareto_front(cfg.gamma),
+                        eval_freq=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     (seg, _), = timer.calls["train_segment"]
     front, host = agent._last_front, agent._last_metrics
-    if state.global_step != PQL_STEPS or not len(front) or not bool(torch.isfinite(state.q_sets).all()):
+    d = len(ref_point)
+    if state.global_step != steps or front.shape[-1] != d or not len(front) or not bool(torch.isfinite(state.q_sets).all()):
         raise AssertionError(f"global_step {state.global_step}, local PCS {front}, or non-finite Q-sets")
-    log(f"[pql] deep-sea-treasure K={PQL_CONFIG.set_capacity}: PQL.train {PQL_STEPS} steps in {wall:.2f} s; "
-        f"train_segment {1e3 * seg / PQL_STEPS:.3f} ms/step; {int(state.q_valid.sum())} set members; local PCS at the "
+    log(f"[{tag}] {env_id} K={cfg.set_capacity} action_eval={cfg.action_eval}: PQL.train {steps} steps in {wall:.2f} s; "
+        f"train_segment {1e3 * seg / steps:.3f} ms/step; {int(state.q_valid.sum())} set members; local PCS at the "
         f"start state {front.tolist()}; " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
-    prof = profile_window(lambda: agent.train_segment(state, 20), "pql 20 steps")
+    prof = profile_window(lambda: agent.train_segment(state, 20), f"{tag} 20 steps")
     if prof:
-        log(f"[pql] {prof['launches'] / 20:.1f} launches a step, device busy {prof['busy_ms'] / 20:.4f} ms of "
-            f"{1e3 * seg / PQL_STEPS:.3f} ms ({100 * prof['busy_ms'] / 20 / (1e3 * seg / PQL_STEPS):.1f}%)")
-    launched = score_on_card(front, host, DST_REF_POINT)
+        log(f"[{tag}] {prof['launches'] / 20:.1f} launches a step, device busy {prof['busy_ms'] / 20:.4f} ms of "
+            f"{1e3 * seg / steps:.3f} ms ({100 * prof['busy_ms'] / 20 / (1e3 * seg / steps):.1f}%)")
+    launched = score_on_card(front, host, ref_point)
     target = front[np.argmax(front[:, 0])]
     t0 = time.perf_counter()
     tracked = agent.track_policy(state, target)
-    if tracked.shape != (2,) or not np.isfinite(tracked).all():
+    if tracked.shape != (d,) or not np.isfinite(tracked).all():
         raise AssertionError(f"track_policy returned {tracked}")
-    log(f"[pql] track_policy of {target.tolist()}: return {tracked.tolist()} in {1e3 * (time.perf_counter() - t0):.0f} ms")
+    log(f"[{tag}] track_policy of {target.tolist()}: return {tracked.tolist()} in {1e3 * (time.perf_counter() - t0):.0f} ms")
     return launched
 
 
@@ -1254,6 +1320,126 @@ def phase_ipro(smi: str) -> int:
     return score_on_card(front, host, DST_REF_POINT)
 
 
+def phase_envs(smi: str) -> dict:
+    """The envs of the discrete and pixel paths, stepped with random actions through the
+    vector env (autoreset included) for ``ENV_STEPS`` steps: ms and kernel
+    launches a step, finite observations (inside the observation box where
+    ``NEW_ENVS`` says so), rewards in their documented bounds.  Then the PD heuristic on ``LANDERS`` landers:
+    at least 90% land (+100 on objective 0)."""
+    out = {}
+    for env_id, (n, in_box, lo, hi) in NEW_ENVS.items():
+        env = make(env_id)
+        venv = VectorMOEnv(env, n)
+        gen = torch.Generator("cuda").manual_seed(0)
+        state, _ = venv.reset(gen)
+        rewards, obs_ok = [], True
+        space = env.observation_space
+        box = None if not in_box else (
+            torch.as_tensor(np.broadcast_to(np.asarray(space.low), space.shape).astype(np.float32).reshape(-1), device="cuda"),
+            torch.as_tensor(np.broadcast_to(np.asarray(space.high), space.shape).astype(np.float32).reshape(-1), device="cuda"),
+        )
+
+        def steps(k, keep=False):
+            nonlocal state, obs_ok
+            for _ in range(k):
+                o = venv.step(state, env.action_space.sample(gen, n), gen)
+                state = o.state
+                if keep:
+                    x = o.obs.reshape(n, -1).to(torch.float32)
+                    ok = torch.isfinite(x).all()
+                    if box is not None:
+                        ok = ok & (x >= box[0]).all() & (x <= box[1]).all()
+                    obs_ok = obs_ok & ok
+                    rewards.append(o.reward)
+
+        steps(2)  # warm: caches of constants, the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(ENV_STEPS, keep=True)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / ENV_STEPS
+        rew = torch.stack(rewards)
+        lo_t, hi_t = (torch.as_tensor(b, dtype=torch.float32, device="cuda") for b in (lo, hi))
+        if not bool(obs_ok) or not bool(torch.isfinite(rew[..., torch.isfinite(lo_t)]).all()):
+            raise AssertionError(f"{env_id}: observations outside their box or non-finite rewards")
+        if not bool(((rew >= lo_t - 1e-5) & (rew <= hi_t + 1e-5)).all()):
+            raise AssertionError(f"{env_id}: rewards outside {lo}..{hi}: {rew.amin((0, 1)).tolist()} .. {rew.amax((0, 1)).tolist()}")
+        prof = profile_window(lambda: steps(5), f"{env_id} 5 steps", top=0)
+        launches = prof["launches"] / 5 if prof else None
+        out[env_id] = dict(envs=n, ms=ms, launches=launches)
+        log(f"[envs] {env_id} x {n}: {ms:.3f} ms a step ({ENV_STEPS * n / (ms * ENV_STEPS / 1e3):.0f} env-steps/s), "
+            f"{launches if launches is None else f'{launches:.0f}'} launches a step; rewards "
+            f"{[round(float(x), 4) for x in rew.amin((0, 1))]} .. {[round(float(x), 4) for x in rew.amax((0, 1))]} [{smi}]")
+
+    env = make("mo-lunar-lander-v3")
+    w = torch.zeros((LANDERS, 4), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret, _, length = rollout_episode(env, lambda obs, w_, g: lander_heuristic(obs), w,
+                                     torch.Generator("cuda").manual_seed(3), 1.0, 1000)
+    torch.cuda.synchronize()
+    landed = float((ret[:, 0] == 100.0).float().mean())
+    crashed = float((ret[:, 0] == -100.0).float().mean())
+    log(f"[envs] lander heuristic on {LANDERS} landers: {100 * landed:.1f}% landed, {100 * crashed:.1f}% crashed, "
+        f"episodes of {int(length.min())}..{int(length.max())} steps, main fuel {float(ret[:, 2].mean()):.3f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if landed < 0.9 or not bool((ret[:, 2] < 0).all()):
+        raise AssertionError(f"the heuristic landed {landed:.3f} of the landers (>= 0.9 needed), or one burned no fuel")
+    out["lander_heuristic"] = dict(landers=LANDERS, landed=landed, crashed=crashed)
+    return out
+
+
+def phase_envelope_pixel(smi: str) -> int:
+    """Envelope with the NatureCNN trunk on the pixel DST under the mario
+    wrapper stack, at the example's widths: ``train_segment`` past
+    ``learning_starts``, then ``PIXEL_SEG_ITERS`` timed iterations and a
+    profiled window, the peak device memory (the float32 frame buffer); then
+    ``Envelope.train`` from scratch with one evaluation of 32 weights, its
+    front scored on the card."""
+    env = make("deep-sea-treasure-pixel-stack-v0")
+    cfg, N = PIXEL_CONFIG, PIXEL_CONFIG.num_envs
+    torch.cuda.reset_peak_memory_stats()
+    agent = Envelope(env, cfg)
+    state = agent.init_state()
+    agent.train_segment(state, cfg.learning_starts // N + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train_segment(state, PIXEL_SEG_ITERS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PIXEL_SEG_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not _params_finite(state.ts.net) or not math.isfinite(float(state.loss)):
+        raise AssertionError(f"non-finite Q-net params or loss {float(state.loss)}")
+    log(f"[envelope_pixel] deep-sea-treasure-pixel-stack num_envs={N} image={cfg.image_shape} hidden={cfg.hidden} "
+        f"batch={cfg.batch_size} num_sample_w={cfg.num_sample_w} buffer={cfg.buffer_size}: train_segment {ms:.2f} "
+        f"ms/iteration, {N / (ms / 1e3):.0f} env-steps/s, loss {float(state.loss):.4g}; peak device memory {peak:.2f} GiB "
+        f"[{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 3), "envelope_pixel 3 iterations")
+    if prof:
+        log(f"[envelope_pixel] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms "
+            f"of {ms:.2f} ms ({100 * prof['busy_ms'] / 3 / ms:.1f}%)")
+    del agent, state
+    torch.cuda.empty_cache()
+
+    agent = Envelope(env, cfg)
+    timer = PhaseTimer()
+    timer.wrap(agent, "train_segment")
+    timer.wrap(agent, "_eval_front")
+    t0 = time.perf_counter()
+    state = agent.train(total_timesteps=PIXEL_TRAIN_STEPS, ref_point=DST_REF_POINT,
+                        known_pareto_front=env.pareto_front(cfg.gamma), eval_freq=PIXEL_TRAIN_STEPS,
+                        num_eval_weights_for_front=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if state.global_step != PIXEL_TRAIN_STEPS or not _params_finite(state.ts.net):
+        raise AssertionError(f"global_step {state.global_step}, or non-finite params")
+    host = agent._last_metrics
+    each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
+    log(f"[envelope_pixel] Envelope.train {state.global_step} steps in {wall:.2f} s; {each}; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return score_on_card(agent._last_front, host, DST_REF_POINT)
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -1302,6 +1488,7 @@ def main() -> int:
     timed = phase_kernel_vs_plain(smi)
     archive = phase_archive_add(smi)
     planar = phase_planar(smi)
+    envs = phase_envs(smi)
 
     # each path's launches, counted from 0 just before it and read just after
     paths = {
@@ -1320,6 +1507,12 @@ def main() -> int:
         "pcn": lambda: phase_pcn(smi),
         "lcn": lambda: phase_lcn(smi),
         "ipro": lambda: phase_ipro(smi),
+        "morld_lunar": lambda: (
+            phase_morld_step(smi, "mo-lunar-lander-v3", MORLD_LUNAR_CONFIG, "morld_lunar_step"),
+            phase_morld_train(smi, "mo-lunar-lander-v3", MORLD_LUNAR_CONFIG, LUNAR_REF_POINT, "morld_lunar_train"),
+        ),
+        "envelope_pixel": lambda: phase_envelope_pixel(smi),
+        "pql_four_room": lambda: phase_pql(smi, "four-room-v0", PQL4_CONFIG, PQL4_STEPS, FOUR_ROOM_REF_POINT, "pql_four_room"),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}
@@ -1352,6 +1545,7 @@ def main() -> int:
         "archive_add": archive,
     }
     log(f"[planar] {json.dumps(planar)}")
+    log(f"[envs] {json.dumps(envs)}")
     log(smi)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

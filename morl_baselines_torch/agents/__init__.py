@@ -1,5 +1,5 @@
 """Algorithm suite (ported so far: Envelope, GPI-LS, GPI-PD, continuous GPI-LS and GPI-PD, MOPPO, PGMORL,
-continuous MOSAC, MORL/D, MO-Q-Learning, MPMOQL, PQL, EUPG, PCN, LCN, CAPQL, NL-MOPPO and IPRO)."""
+continuous and discrete MOSAC, MORL/D, MO-Q-Learning, MPMOQL, PQL, EUPG, PCN, LCN, CAPQL, NL-MOPPO and IPRO)."""
 
 from .base import MOAgentBase
 from .capql import CAPQL, CAPQLConfig, CAPQLState, sample_angle_weights
@@ -14,7 +14,7 @@ from .lcn import LCN, LCNConfig
 from .moppo import MOPPO, MOPPOConfig, MOPPONet, MOPPOState
 from .moql import MOQLearning, MOQLearningConfig
 from .morld import MORLD, MORLDConfig
-from .mosac import MOSAC, MOSACConfig, MOSACState
+from .mosac import MOSAC, MOSACConfig, MOSACDiscrete, MOSACState
 from .mpmoql import MPMOQLConfig, MPMOQLearning
 from .nlmoppo import NLMOPPO, NLAgentNet, NLMOPPOConfig, NLMOPPOState
 from .pcn import PCN, PCNConfig, PCNModel, PCNState
@@ -57,6 +57,7 @@ __all__ = [
     "MORLD",
     "MORLDConfig",
     "MOSAC",
+    "MOSACDiscrete",
     "MOSACConfig",
     "MOSACState",
     "MPMOQLConfig",

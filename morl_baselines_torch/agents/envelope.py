@@ -10,6 +10,8 @@ multi_policy/envelope/envelope.py:33-573; Yang et al., 2019):
   (reference :309-313, 348-355).
 - Per-episode Gaussian weight resampling (reference :526-569); optional PER
   with priorities (|w·td| + min_priority)^alpha (reference :329-334, 507-525).
+- ``image_shape``: a NatureCNN trunk on flat stacked frames (the pixel DST
+  under the mario wrapper stack).
 
 ``num_envs`` envs live on the device and a segment of (act -> step -> store
 -> learn) iterations is a Python loop of tensor ops, where the JAX package
@@ -68,6 +70,7 @@ class EnvelopeConfig:
     min_priority: float = 0.01
     hidden: tuple = (256, 256, 256, 256)
     bf16: bool = False  # bfloat16 Q-net compute: not in the port yet
+    image_shape: tuple | None = None  # (k, H, W): NatureCNN trunk on flat image obs
     seed: int = 0
 
 
@@ -95,7 +98,8 @@ class Envelope(MOAgentBase):
 
     def make_q_net(self, gen: torch.Generator | None = None) -> EnvelopeQNet:
         """A freshly initialized Q-net on the agent's device."""
-        net = EnvelopeQNet(self.obs_dim, self.env.num_actions, self.reward_dim, self.cfg.hidden, gen=gen)
+        cfg = self.cfg
+        net = EnvelopeQNet(self.obs_dim, self.env.num_actions, self.reward_dim, cfg.hidden, gen, cfg.image_shape)
         return net.to(self.device)
 
     def make_train_state(self, net: EnvelopeQNet) -> TrainState:

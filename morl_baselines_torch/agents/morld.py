@@ -23,8 +23,8 @@ Two execution modes, as in the JAX package:
   (j - shift) mod P's buffer (``torch.roll`` along the member axis, as
   ``jnp.roll``).
 
-MORL/D on a discrete action space needs ``MOSACDiscrete``, which the port
-does not have yet (ROADMAP slice 5); it raises ``NotImplementedError``.
+The members are ``MOSAC`` on a continuous (Box) action space and
+``MOSACDiscrete`` on a discrete one (the lunar lander showcase), in both modes.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from ..models.networks import gather_members_
 from ..replay.buffer import Transition
 from ..utils.schedules import nearest_neighbors
 from .base import MOAgentBase
-from .mosac import MOSAC, MOSACConfig
+from .mosac import MOSAC, MOSACConfig, MOSACDiscrete
 
 
 @dataclass(frozen=True)
@@ -81,17 +81,13 @@ class MORLD(MOAgentBase):
         super().__init__(env, config, log=log, device=device)
         self.cfg = config
         d = env.reward_dim
-        if not isinstance(env.action_space, Box):
-            raise NotImplementedError(
-                "MORL/D on a discrete action space needs MOSACDiscrete, which the port does not have yet "
-                "(ROADMAP Queue 1, slice 5)"
-            )
         if config.weight_init_method == "uniform":
             ws = equally_spaced_weights(d, config.pop_size)
         else:
             ws = random_weights(torch.Generator().manual_seed(config.seed), d, n=config.pop_size).numpy()
         self.weights = [np.asarray(w, dtype=np.float32) for w in ws]
-        self.population = [MOSAC(env, weights=w, config=config.sac, device=self.device) for w in self.weights]
+        agent_cls = MOSAC if isinstance(env.action_space, Box) else MOSACDiscrete
+        self.population = [agent_cls(env, weights=w, config=config.sac, device=self.device) for w in self.weights]
         self.neighborhoods = nearest_neighbors(np.stack(self.weights), config.neighborhood_size)
         self.archive = ParetoArchive()
 

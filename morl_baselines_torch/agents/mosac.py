@@ -1,15 +1,18 @@
-"""MOSAC — multi-objective SAC (continuous actions), on torch, for one policy or a population.
+"""MOSAC — multi-objective SAC (continuous and discrete actions), on torch, for one policy or a population.
 
-PyTorch port of the continuous ``MOSAC`` of ``morl_baselines_tpu/agents/mosac.py``
-(reference single_policy/ser/mosac_continuous_action.py:28-573, CleanRL SAC
-with vector critics):
+PyTorch port of ``morl_baselines_tpu/agents/mosac.py`` (reference
+single_policy/ser/mosac_continuous_action.py:28-573 and
+mosac_discrete_action.py:36-603, CleanRL SAC with vector critics):
 
-- twin critics Q(s, a) -> R^d; the scalarization u(·, w) with the policy's
-  fixed weight comes *before* the min over the twins (reference :437-448);
-- squashed-Gaussian actor; the actor and the autotuned entropy alpha (its
-  loss in log_alpha, its own Adam at ``q_learning_rate``, target entropy
-  -|A|) update only when ``iter_count % policy_freq == 0``; Polyak on every
-  update;
+- twin critics Q(s, a) -> R^d (continuous) or Q(s) -> (A, d) (discrete);
+  the scalarization u(·, w) with the policy's fixed weight comes *before*
+  the min over the twins (reference continuous :437-448, discrete :452-464);
+- ``MOSAC``: squashed-Gaussian actor, target entropy -|A|;
+  ``MOSACDiscrete``: categorical actor with the expectation-based update,
+  target entropy ``target_entropy_scale`` · log|A|, Gumbel-max acting;
+- the actor and the autotuned entropy alpha (its loss in log_alpha, its own
+  Adam at ``q_learning_rate``) update only when ``iter_count % policy_freq
+  == 0``, against the critic after its step; Polyak on every update;
 - ``set_weights`` and an external buffer for MORL/D (reference morld.py:30-34).
 
 Every tensor of the state carries a leading member axis P (P = 1 is one
@@ -23,7 +26,8 @@ As in the port's other agents, a segment is a Python loop of tensor ops; the
 state is updated in place; ``global_step`` and ``iter_count`` are host
 integers, so the learn gate needs no device read; randomness comes from one
 ``torch.Generator`` on the device, and ``_update`` takes its normals
-explicitly when given.  ``update_once`` does not advance ``iter_count``: the
+explicitly when given (the discrete agent's Gumbel noise through
+``_gumbel``).  ``update_once`` does not advance ``iter_count``: the
 cooperation passes of one MORL/D round all update the actor or all skip it.
 """
 
@@ -39,7 +43,7 @@ import torch
 from ..envs.base import Box, MOEnv
 from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import rollout_episode
-from ..models.continuous import ContinuousQNet, SquashedGaussianActor
+from ..models.continuous import ContinuousQNet, DiscreteQNet, DiscreteSACActor, SquashedGaussianActor
 from ..models.networks import TrainState, polyak_update, stack_members
 from ..replay.buffer import MemberReplayBuffer, Transition
 from .base import MOAgentBase
@@ -58,15 +62,16 @@ class MOSACConfig:
     policy_freq: int = 2
     alpha: float = 0.2
     autotune: bool = True
+    target_entropy_scale: float = 0.89  # discrete only (reference mosac_discrete_action.py:36-90)
     hidden: tuple = (256, 256)
     seed: int = 0
 
 
 @dataclass
 class MOSACState:
-    actor: SquashedGaussianActor  # members P
+    actor: SquashedGaussianActor | DiscreteSACActor  # members P
     actor_optimizer: torch.optim.Optimizer
-    critic: TrainState  # ContinuousQNet of P·2 members (member p's twins at 2p, 2p + 1) and its target
+    critic: TrainState  # critic of P·2 members (member p's twins at 2p, 2p + 1) and its target
     log_alpha: torch.Tensor  # (P,), a leaf with its own Adam
     alpha_optimizer: torch.optim.Optimizer
     venv: VectorMOEnv  # P·N envs, member-major
@@ -85,13 +90,16 @@ class MOSACState:
 class MOSAC(MOAgentBase):
     """Continuous-action MOSAC with a fixed scalarization weight per member."""
 
+    discrete = False
+
     def __init__(self, env: MOEnv, weights, config: MOSACConfig = MOSACConfig(), log: bool = False, device="cuda"):
         super().__init__(env, config, log=log, device=device)
-        if not isinstance(env.action_space, Box):
-            raise ValueError("MOSAC needs a continuous (Box) action space")
+        if isinstance(env.action_space, Box) == self.discrete:
+            raise ValueError(f"{type(self).__name__} needs a {'discrete' if self.discrete else 'continuous (Box)'} action space")
         self.cfg = config
         self.w = torch.as_tensor(np.asarray(weights), dtype=torch.float32, device=self.device)
         self.action_dim = env.action_dim
+        self.action_shape = () if self.discrete else (self.action_dim,)
         self.target_entropy = -float(self.action_dim)
 
     def set_weights(self, weights) -> None:
@@ -215,16 +223,11 @@ class MOSAC(MOAgentBase):
         share one across its looped population (reference :341-347).  ``w``
         (P, d) overrides the agent's weight, one row per member."""
         cfg = self.cfg
-        P, N, dev = state.members, cfg.num_envs, self.device
+        P, N = state.members, cfg.num_envs
         w = (self.w if w is None else w).reshape(-1, self.reward_dim).expand(P, -1)
         for _ in range(num_iters):
-            if state.global_step < cfg.learning_starts:
-                actions = torch.rand((P, N, self.action_dim), generator=state.gen, device=dev) * 2.0 - 1.0
-            else:
-                with torch.no_grad():
-                    mean, log_std = state.actor(state.obs)
-                    actions, _ = SquashedGaussianActor.sample(mean, log_std, self._normals(state, mean))
-            out = state.venv.step(state.env_state, actions.reshape(P * N, -1), state.gen)
+            actions = self._explore(state)
+            out = state.venv.step(state.env_state, actions.reshape(P * N, *self.action_shape), state.gen)
             done = out.terminated | out.truncated
             state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
             buffer.add_batch(
@@ -242,6 +245,16 @@ class MOSAC(MOAgentBase):
             if state.global_step >= cfg.learning_starts:
                 self._update(state, buffer.sample(state.gen, cfg.batch_size), w)
         return state
+
+    @torch.no_grad()
+    def _explore(self, state: MOSACState) -> torch.Tensor:
+        """The actions (P, N, A) of one training step: uniform before
+        ``learning_starts``, then a sample of the policy."""
+        if state.global_step < self.cfg.learning_starts:
+            P, N = state.members, self.cfg.num_envs
+            return torch.rand((P, N, self.action_dim), generator=state.gen, device=self.device) * 2.0 - 1.0
+        mean, log_std = state.actor(state.obs)
+        return SquashedGaussianActor.sample(mean, log_std, self._normals(state, mean))[0]
 
     def train(self, total_timesteps: int, state: MOSACState | None = None, buffer: MemberReplayBuffer | None = None):
         state = state if state is not None else self.init_state()
@@ -266,6 +279,92 @@ class MOSAC(MOAgentBase):
         episodes under its weight ``w`` (P, d), all P·rep in one batch."""
         P, d = state.members, self.reward_dim
         w = (self.w if w is None else w).reshape(-1, d).expand(P, -1)
-        act = lambda obs, w_, g: self.act_eval(state.actor, obs.reshape(P, rep, -1)).reshape(P * rep, -1)  # noqa: E731
+        act = lambda obs, w_, g: self.act_eval(state.actor, obs.reshape(P, rep, -1)).reshape(P * rep, *self.action_shape)  # noqa: E731
         rets, discs, _ = rollout_episode(self.env, act, w.repeat_interleave(rep, dim=0), gen, self.cfg.gamma, max_steps)
         return rets.reshape(P, rep, d).mean(dim=1), discs.reshape(P, rep, d).mean(dim=1)
+
+
+class MOSACDiscrete(MOSAC):
+    """Discrete-action MOSAC (reference mosac_discrete_action.py:36-603):
+    a categorical actor over the A actions and twin critics Q(s) -> (A, d)."""
+
+    discrete = True
+
+    def __init__(self, env: MOEnv, weights, config: MOSACConfig = MOSACConfig(), log: bool = False, device="cuda"):
+        super().__init__(env, weights, config, log=log, device=device)
+        self.num_actions = env.num_actions
+        self.target_entropy = config.target_entropy_scale * float(np.log(self.num_actions))
+
+    def make_actor(self, members: int = 1, gen: torch.Generator | None = None) -> DiscreteSACActor:
+        return DiscreteSACActor(self.obs_dim, self.num_actions, self.cfg.hidden, members, gen)
+
+    def make_critic(self, members: int = 2, gen: torch.Generator | None = None) -> DiscreteQNet:
+        return DiscreteQNet(self.obs_dim, self.num_actions, self.reward_dim, self.cfg.hidden, members, gen)
+
+    def make_buffer(self, members: int = 1) -> MemberReplayBuffer:
+        return MemberReplayBuffer.create(
+            members, self.cfg.buffer_size, obs_dim=self.obs_dim, reward_dim=self.reward_dim, device=self.device
+        )
+
+    @staticmethod
+    def q_values(critic: DiscreteQNet, obs: torch.Tensor) -> torch.Tensor:
+        """Twin critics of every member: obs (P, B, O) -> (P, 2, B, A, d)."""
+        P = obs.shape[0]
+        q = critic(obs[:, None].expand(P, 2, *obs.shape[1:]).reshape(2 * P, *obs.shape[1:]))
+        return q.reshape(P, 2, *q.shape[1:])
+
+    def _gumbel(self, state: MOSACState, like: torch.Tensor) -> torch.Tensor:
+        """Gumbel(0, 1) noise of ``like``'s shape: -log(-log(u)), u in [tiny, 1)."""
+        u = torch.rand(like.shape, generator=state.gen, device=like.device)
+        return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+
+    @torch.no_grad()
+    def _explore(self, state: MOSACState) -> torch.Tensor:
+        """Gumbel-max samples (P, N) of the policy (``jax.random.categorical``), from the first step."""
+        logits = state.actor(state.obs)
+        return torch.argmax(logits + self._gumbel(state, logits), dim=-1)
+
+    def _update(self, state: MOSACState, batch: Transition, w: torch.Tensor) -> torch.Tensor:
+        """One expectation-based discrete SAC update of every member in place
+        (JAX ``MOSACDiscrete._update``, reference :452-510) on batch rows
+        (P, B, ...) under weights w (P, d).  Returns the critic losses (P,)."""
+        cfg = self.cfg
+        critic = state.critic
+        alpha = torch.exp(state.log_alpha.detach())[:, None, None]
+
+        with torch.no_grad():
+            logits_next = state.actor(batch.next_obs)
+            probs_next, logp_next = torch.softmax(logits_next, -1), torch.log_softmax(logits_next, -1)
+            q_next = torch.einsum("pcbad,pd->pcba", self.q_values(critic.target_net, batch.next_obs), w)
+            v_next = torch.sum(probs_next * (q_next.amin(dim=1) - alpha * logp_next), dim=-1)
+            target = torch.einsum("pbd,pd->pb", batch.reward, w) + (1.0 - batch.terminated) * cfg.gamma * v_next
+        q = torch.einsum("pcbad,pd->pcba", self.q_values(critic.net, batch.obs), w)
+        idx = batch.action.long()[:, None, :, None].expand(-1, 2, -1, 1)
+        q_sa = torch.gather(q, 3, idx).squeeze(3)  # (P, 2, B)
+        closs = ((q_sa - target[:, None]) ** 2).mean(dim=(1, 2))
+        critic.optimizer.zero_grad(set_to_none=True)
+        closs.sum().backward()
+        critic.optimizer.step()
+
+        # delayed actor + alpha update, against the updated critic
+        if state.iter_count % cfg.policy_freq == 0:
+            logits = state.actor(batch.obs)
+            probs, logp = torch.softmax(logits, -1), torch.log_softmax(logits, -1)
+            with torch.no_grad():
+                min_q = torch.einsum("pcbad,pd->pcba", self.q_values(critic.net, batch.obs), w).amin(dim=1)
+            aloss = torch.sum(probs * (alpha * logp - min_q), dim=-1).mean(dim=1)
+            state.actor_optimizer.zero_grad(set_to_none=True)
+            aloss.sum().backward(inputs=list(state.actor.parameters()))
+            state.actor_optimizer.step()
+            if cfg.autotune:
+                # d/d log_alpha of mean(log_alpha * (entropy - target_entropy)), per member
+                ent = -torch.sum(probs.detach() * logp.detach(), dim=-1)
+                state.log_alpha.grad = (ent - self.target_entropy).mean(dim=1)
+                state.alpha_optimizer.step()
+        polyak_update(critic.net, critic.target_net, cfg.tau)
+        return closs.detach()
+
+    @torch.no_grad()
+    def act_eval(self, actor: DiscreteSACActor, obs: torch.Tensor) -> torch.Tensor:
+        """Each member's greedy action (argmax of the logits) for obs (P, M, obs_dim)."""
+        return torch.argmax(actor(obs), dim=-1)

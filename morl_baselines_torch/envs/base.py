@@ -49,12 +49,30 @@ class Box:
         return lo + torch.rand((n, *lo.shape), generator=gen, device=gen.device) * (hi - lo)
 
 
+@dataclass(frozen=True)
+class ArrayBox:
+    """n-D box with scalar bounds (image observations, stacked frames)."""
+
+    low: float
+    high: float
+    shape: Tuple[int, ...]
+
+
 class StepOut(NamedTuple):
     state: Any
-    obs: torch.Tensor  # (n, obs_dim)
+    obs: torch.Tensor  # (n, obs_dim), or (n, *frame) for image obs
     reward: torch.Tensor  # (n, reward_dim) vector reward — the MO extension
     terminated: torch.Tensor  # (n,) bool
     truncated: torch.Tensor  # (n,) bool
+
+
+def tree_where(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` over two env states of the same structure
+    (NamedTuples of (n, ...) tensors, nested for wrapped envs); ``cond`` is
+    (n,) and broadcasts over each leaf's trailing axes."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
+    return type(a)(*(tree_where(cond, x, y) for x, y in zip(a, b)))
 
 
 class MOEnv:

@@ -16,16 +16,16 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .base import MOEnv
+from .base import MOEnv, tree_where
 
 
 class VecStepOut(NamedTuple):
-    state: Any  # env-state NamedTuple of (N, ...) tensors
-    obs: torch.Tensor  # (N, obs_dim) — post-autoreset obs
+    state: Any  # env-state NamedTuple of (N, ...) tensors (nested for wrapped envs)
+    obs: torch.Tensor  # (N, obs_dim), or (N, *frame) for image obs — post-autoreset obs
     reward: torch.Tensor  # (N, d)
     terminated: torch.Tensor  # (N,)
     truncated: torch.Tensor  # (N,)
-    final_obs: torch.Tensor  # (N, obs_dim) — pre-reset obs of this step
+    final_obs: torch.Tensor  # pre-reset obs of this step, obs's shape
 
 
 class VectorMOEnv:
@@ -45,13 +45,8 @@ class VectorMOEnv:
         done = out.terminated | out.truncated
         reset_state, reset_obs = self.env.reset(n, gen)
         # select reset state/obs where done (same-step autoreset)
-        new_state = type(out.state)(
-            *(
-                torch.where(done.reshape(done.shape + (1,) * (s.dim() - 1)), r, s)
-                for r, s in zip(reset_state, out.state)
-            )
-        )
-        obs = torch.where(done[:, None], reset_obs, out.obs)
+        new_state = tree_where(done, reset_state, out.state)
+        obs = tree_where(done, reset_obs, out.obs)
         return VecStepOut(new_state, obs, out.reward, out.terminated, out.truncated, out.obs)
 
 

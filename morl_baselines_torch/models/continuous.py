@@ -11,7 +11,9 @@ mosac_continuous_action.py:28-115):
   ``ContinuousQNet(weight_conditioned=False)`` is MOSAC's Q(s, a) critic;
 - ``SquashedGaussianActor``: MOSAC's tanh-squashed Gaussian policy, with
   ``members`` for a population (outputs (members, B, A)), and CAPQL's
-  weight-conditioned one with ``reward_dim``.
+  weight-conditioned one with ``reward_dim``;
+- ``DiscreteSACActor`` and ``DiscreteQNet``: discrete MOSAC's categorical
+  logits pi(a|s) and vector critic Q(s) -> (A, d), each with ``members``.
 
 The layer order is the JAX package's.  ``train=True`` normalizes with batch
 statistics and updates the BatchRenorm running statistics; dropout runs only
@@ -215,3 +217,44 @@ class SquashedGaussianActor(nn.Module):
 
     def flax_layout(self) -> dict:
         return {"MLP_0": self.mlp, "Dense_0": self.mean, "Dense_1": self.log_std}
+
+
+class DiscreteSACActor(nn.Module):
+    """pi(a|s) categorical logits (reference mosac_discrete_action.py:36-90):
+    a ReLU trunk and Dense(A).  With ``members`` the input is (members, B,
+    obs_dim) (or (B, obs_dim), shared) and the logits are (members, B, A)."""
+
+    def __init__(
+        self, obs_dim: int, num_actions: int, hidden: Sequence[int] = (256, 256), members: int | None = None,
+        gen: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.mlp = MLP(obs_dim, hidden, gen=gen, members=members)
+        self.out = dense(hidden[-1], num_actions, gen) if members is None else EnsembleDense(members, hidden[-1], num_actions, gen)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.out(self.mlp(obs))
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp, "Dense_0": self.out}
+
+
+class DiscreteQNet(nn.Module):
+    """Q(s) -> (A, d) for discrete SAC (reference mosac_discrete_action.py:36-77):
+    a ReLU MLP with a Dense(A·d) output.  With ``members`` the output is
+    (members, B, A, d)."""
+
+    def __init__(
+        self, obs_dim: int, num_actions: int, reward_dim: int, hidden: Sequence[int] = (256, 256),
+        members: int | None = None, gen: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.num_actions, self.reward_dim = num_actions, reward_dim
+        self.mlp = MLP(obs_dim, hidden, num_actions * reward_dim, gen, members=members)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = self.mlp(obs)
+        return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
+
+    def flax_layout(self) -> dict:
+        return {"MLP_0": self.mlp}

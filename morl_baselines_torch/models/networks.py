@@ -8,8 +8,10 @@ common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 - ``EnsembleDense``: ``members`` Dense layers stacked on a leading axis and
   computed as one batched GEMM (``torch.baddbmm``), in place of flax's
   ``nn.vmap`` over unshared params.
-- ``EnvelopeQNet``: Q(s, w) in R^{A x d} from the concatenation obs||w
-  (flat observations).
+- ``NatureCNN``: the DQN-Nature conv trunk with /255 input normalization.
+- ``EnvelopeQNet``: Q(s, w) in R^{A x d} from the concatenation obs||w; with
+  ``image_shape`` the flat obs are k stacked frames that go through a
+  ``NatureCNN`` first.
 - ``WeightConditionedQNet``: the psi-network Q(s, w) in R^{A x d} from the
   product of an obs embedding and a weight embedding; ``members`` stacks
   critics of it (the JAX package's ``ensemble``).
@@ -28,8 +30,8 @@ common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 
 Linear layers are initialized as flax ``nn.Dense`` is: lecun-normal weights
 (a normal truncated at two standard deviations, rescaled so the variance is
-1/fan_in) and zero biases.  Torch's own ``Linear`` init would change the
-learning curves.
+1/fan_in) and zero biases, and so are convolutions (flax ``nn.Conv``, fan-in
+kh·kw·in).  Torch's own ``Linear`` init would change the learning curves.
 
 A forward given ``dtype`` (bfloat16) computes as a flax module built with
 that ``dtype`` does: each Dense casts its input and params to it, LayerNorm
@@ -249,8 +251,49 @@ class WeightNormDense(nn.Module):
         return torch.baddbmm(self.bias[:, None, :], x, w)
 
 
+def conv(in_channels: int, out_channels: int, kernel: int, stride: int, gen: torch.Generator | None = None) -> nn.Conv2d:
+    """``nn.Conv2d`` with ``VALID`` padding, initialized like flax ``nn.Conv``
+    (lecun_normal over the fan-in kh·kw·in, zero bias)."""
+    layer = nn.Conv2d(in_channels, out_channels, kernel, stride)
+    with torch.no_grad():
+        _lecun_normal_(layer.weight, in_channels * kernel * kernel, gen)
+        layer.bias.zero_()
+    return layer
+
+
+class NatureCNN(nn.Module):
+    """DQN-Nature conv trunk with /255 input normalization (reference networks.py:51-88).
+
+    Input (B, k, H, W), the k frames as channels; three ``VALID`` convs
+    (84 -> 20 -> 9 -> 7 for 84x84 frames) and Dense(``features_dim``), each
+    with ReLU.  The last conv's output is flattened in (H, W, C) order, as
+    flax flattens its NHWC activations, so a carried Dense kernel fits."""
+
+    def __init__(self, image_shape: Sequence[int], features_dim: int = 512, gen: torch.Generator | None = None):
+        super().__init__()
+        k, h, w = image_shape
+        self.convs = nn.ModuleList([conv(k, 32, 8, 4, gen), conv(32, 64, 4, 2, gen), conv(64, 64, 3, 1, gen)])
+        for kernel, stride in ((8, 4), (4, 2), (3, 1)):
+            h, w = (h - kernel) // stride + 1, (w - kernel) // stride + 1
+        self.out = dense(64 * h * w, features_dim, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32) / 255.0
+        for layer in self.convs:
+            x = torch.relu(layer(x))
+        return torch.relu(self.out(x.permute(0, 2, 3, 1).flatten(1)))
+
+    def flax_layout(self) -> dict:
+        return {**{f"Conv_{i}": c for i, c in enumerate(self.convs)}, "Dense_0": self.out}
+
+
 class EnvelopeQNet(nn.Module):
-    """Q(s, w) -> (A, d) with concat obs||w input (reference envelope.py:33-77)."""
+    """Q(s, w) -> (A, d) with concat obs||w input (reference envelope.py:33-77).
+
+    ``image_shape=(k, H, W)``: the flat obs are k stacked grayscale frames,
+    which go through a ``NatureCNN`` trunk of ``cnn_features`` outputs
+    before the conditioned MLP head (the reference's mario path).  Flat obs
+    keep the replay buffer and the batches 1-D."""
 
     def __init__(
         self,
@@ -259,18 +302,29 @@ class EnvelopeQNet(nn.Module):
         reward_dim: int,
         hidden: Sequence[int] = (256, 256, 256, 256),
         gen: torch.Generator | None = None,
+        image_shape: Sequence[int] | None = None,
+        cnn_features: int = 512,
     ):
         super().__init__()
         self.num_actions = num_actions
         self.reward_dim = reward_dim
+        self.image_shape = None if image_shape is None else tuple(image_shape)
+        if self.image_shape is not None:
+            if obs_dim != int(np.prod(self.image_shape)):
+                raise ValueError(f"obs_dim {obs_dim} is not the size of image_shape {self.image_shape}")
+            self.cnn = NatureCNN(self.image_shape, cnn_features, gen)
+            obs_dim = cnn_features
         self.mlp = MLP(obs_dim + reward_dim, hidden, num_actions * reward_dim, gen)
 
     def forward(self, obs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.image_shape is not None:
+            lead = obs.shape[:-1]
+            obs = self.cnn(obs.reshape(-1, *self.image_shape)).reshape(*lead, -1)
         x = self.mlp(torch.cat([obs, w], dim=-1))
         return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
 
     def flax_layout(self) -> dict:
-        return {"MLP_0": self.mlp}
+        return {"MLP_0": self.mlp} if self.image_shape is None else {"NatureCNN_0": self.cnn, "MLP_0": self.mlp}
 
 
 class WeightConditionedQNet(nn.Module):
@@ -471,13 +525,16 @@ def load_flax_params(module: nn.Module, flax_params) -> nn.Module:
     ``MLP``, ``EnvelopeQNet``, an ``ensemble`` of ``WeightConditionedQNet``
     (``members`` critics), the dynamics' ``GaussianMLP`` members stacked by
     ``jax.vmap``, ``MOPPONet`` (its two MLPs and ``log_std``),
-    ``SquashedGaussianActor``, EUPG's ``PolicyNet``, or a population tree whose leaves carry a
+    ``SquashedGaussianActor``, the discrete SAC nets, EUPG's ``PolicyNet``,
+    ``EnvelopeQNet`` with its ``NatureCNN`` trunk, or a population tree whose leaves carry a
     leading member axis (PGMORL's stacked states, MORL/D's ``jax.vmap`` of
     the inits): a (P, in, out) or (P, 2, in, out) kernel fills a port
     weight of P or P·2 members, as ``stack_members`` lays them out.  Each
     port module names its flax children in ``flax_layout()``.  A flax
     ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in), so
     those kernels are transposed, while ``EnsembleDense`` keeps flax's layout.
+    A flax ``Conv`` kernel (kh, kw, in, out) becomes a torch ``Conv2d.weight``
+    (out, in, kh, kw).
     """
     _load(module, flax_params.get("params", flax_params), type(module).__name__)
     return module
@@ -492,6 +549,8 @@ def to_flax_params(module: nn.Module, grads: bool = False) -> dict:
     np_ = lambda t: get(t).detach().cpu().numpy()  # noqa: E731
     if isinstance(module, nn.Linear):
         return {"kernel": np_(module.weight).T, "bias": np_(module.bias)}
+    if isinstance(module, nn.Conv2d):  # torch (out, in, kh, kw) -> flax (kh, kw, in, out)
+        return {"kernel": np_(module.weight).transpose(2, 3, 1, 0), "bias": np_(module.bias)}
     if isinstance(module, EnsembleDense):
         return {"kernel": np_(module.weight), "bias": np_(module.bias)}
     if isinstance(module, WeightNormDense):
@@ -574,6 +633,13 @@ def _copy(dst: torch.Tensor, src, path: str) -> None:
 def _load(module, tree, path: str) -> None:
     if isinstance(module, nn.Linear):
         _copy(module.weight, np.array(tree["kernel"]).T, f"{path}.kernel")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if isinstance(module, nn.Conv2d):  # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
+        kernel = np.array(tree["kernel"])
+        if kernel.ndim != 4 or kernel.transpose(3, 2, 0, 1).shape != tuple(module.weight.shape):
+            raise ValueError(f"{path}.kernel: flax shape {kernel.shape} does not fit {tuple(module.weight.shape)}")
+        _copy(module.weight, kernel.transpose(3, 2, 0, 1), f"{path}.kernel")
         _copy(module.bias, tree["bias"], f"{path}.bias")
         return
     if isinstance(module, EnsembleDense):

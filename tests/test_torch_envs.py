@@ -152,7 +152,7 @@ def _jax_vec_step(jvenv, state, actions, stats, gamma):
 
 def test_registry_and_sell_cycle():
     with pytest.raises(KeyError):
-        make("four-room-v0")  # an id the port does not have
+        make("mo-hopper-v5")  # an id the port does not have (the host-stepped MuJoCo hopper)
     env = make("minecart-deterministic-v0")
     assert env.name == "minecart-deterministic-v0" and env.obs_dim == 7 and env.num_actions == 6
     # mirror tests/test_envs.py::test_minecart_sell_cycle on a batch of one

@@ -47,6 +47,7 @@ from morl_baselines_torch.agents import (
     MOQLearningConfig,
     MORLDConfig,
     MOSACConfig,
+    MOSACDiscrete,
     MPMOQLConfig,
     MPMOQLearning,
     NLMOPPOConfig,
@@ -86,6 +87,8 @@ def test_port_imports_no_jax():
     later = {f"morl_baselines_torch.agents.{m}" for m in ("moppo", "pgmorl", "mosac", "morld", "moql", "mpmoql", "pql", "eupg")}
     later |= {f"morl_baselines_torch.agents.{m}" for m in ("pcn", "lcn", "capql", "nlmoppo", "ipro")}
     later |= {"morl_baselines_torch.replay.episodic", "morl_baselines_torch.envs.fruit_tree"}
+    later |= {f"morl_baselines_torch.envs.{m}" for m in ("lunar_lander", "four_room", "resource_gathering",
+                                                          "breakable_bottles", "highway", "pixel", "wrappers")}
     assert later <= set(got["names"]), later - set(got["names"])
 
 
@@ -199,3 +202,27 @@ def test_multi_policy_entry_points_need_cuda_by_default(monkeypatch):
         state = agent.init_state()
         where = state.buffer.data.obs if cls in (PCN, LCN) else state.obs
         assert where.device.type == "cpu"
+
+
+def test_discrete_and_pixel_entry_points_need_cuda_by_default(monkeypatch):
+    """MOSACDiscrete, MORL/D on a discrete action space and Envelope with the
+    NatureCNN trunk ask for CUDA unless told otherwise, and raise without it;
+    on the CPU, when asked, their states live there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lander, pixels = make("mo-lunar-lander-v3"), make("deep-sea-treasure-pixel-stack-v0")
+    sac = MOSACConfig(num_envs=4, buffer_size=64, batch_size=8, hidden=(8,))
+    makers = {
+        MOSACDiscrete: lambda **kw: MOSACDiscrete(lander, [0.25] * 4, sac, **kw),
+        MORLD: lambda **kw: MORLD(lander, MORLDConfig(pop_size=2, sac=sac), **kw),
+        Envelope: lambda **kw: Envelope(
+            pixels, EnvelopeConfig(num_envs=2, buffer_size=8, batch_size=4, hidden=(8,), image_shape=(4, 84, 84)), **kw
+        ),
+    }
+    for cls, make_agent in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_agent()
+        agent = make_agent(device="cpu")
+        single = agent.population[0] if cls is MORLD else agent
+        state = single.init_state()
+        assert agent.device.type == "cpu" and state.obs.device.type == "cpu"
+        assert state.obs.shape[-1] == (4 * 84 * 84 if cls is Envelope else 8)

@@ -5,7 +5,8 @@ update are index and host arithmetic, so they must agree exactly with the
 JAX package's on the same inputs (made with numpy from a seed; the gather
 on population trees laid out as the JAX package's, gathered by ``jnp`` indexing).  The
 population runs mirror tests/test_parallel.py at the JAX tests' sizes on
-mo-mountaincarcontinuous (without the device mesh).
+mo-mountaincarcontinuous (without the device mesh); discrete MORL/D runs in
+both modes on deep-sea-treasure.
 """
 
 import jax
@@ -18,7 +19,7 @@ from morl_baselines_torch.agents import MORLD, MORLDConfig, MOSACConfig
 from morl_baselines_torch.agents.morld import cooperation_shift, neighbor_sources
 from morl_baselines_torch.core.indicators import hypervolume
 from morl_baselines_torch.envs import make
-from morl_baselines_torch.models import gather_members_, to_flax_params
+from morl_baselines_torch.models import DiscreteSACActor, gather_members_, to_flax_params
 from morl_baselines_tpu.agents.morld import MORLD as JMORLD
 from morl_baselines_tpu.agents.morld import MORLDConfig as JMORLDConfig
 from morl_baselines_tpu.agents.mosac import MOSACConfig as JMOSACConfig
@@ -89,9 +90,23 @@ def test_psa_weight_matches_jax():
             assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
-def test_discrete_action_space_raises():
-    with pytest.raises(NotImplementedError, match="MOSACDiscrete"):
-        MORLD(make("deep-sea-treasure-v0"), MORLDConfig(pop_size=2, sac=MOSACConfig(**SAC)), device="cpu")
+@pytest.mark.parametrize("vectorized", [False, True], ids=["looped", "vectorized"])
+def test_discrete_morld_dst(vectorized):
+    """MORL/D with ``MOSACDiscrete`` members on deep-sea-treasure, as the JAX
+    package builds it for a discrete action space: categorical actors, PSA,
+    an archive with a positive hypervolume at (0, -50)."""
+    ref = np.array([0.0, -50.0])
+    cfg = MORLDConfig(pop_size=3, exchange_every=64, update_passes=2, vectorized=vectorized,
+                      weight_adaptation_method="PSA", sac=MOSACConfig(**SAC))
+    algo = MORLD(make("deep-sea-treasure-v0"), cfg, device="cpu")
+    jalgo = JMORLD(jmake("deep-sea-treasure-v0"), JMORLDConfig(pop_size=3, sac=JMOSACConfig(**SAC)))
+    assert all(type(a).__name__ == type(j).__name__ == "MOSACDiscrete" for a, j in zip(algo.population, jalgo.population))
+    out = algo.train(total_timesteps=768, ref_point=ref, eval_max_steps=60)
+    states = [out] if vectorized else out
+    assert all(isinstance(s.actor, DiscreteSACActor) for s in states)
+    assert all(bool(torch.isfinite(p).all()) for s in states for p in s.actor.parameters())
+    assert len(algo.archive) >= 1 and algo._last_metrics["eval/hypervolume"] > 0.0
+    assert algo.archive.front.shape[1] == 2
 
 
 def test_looped_neighbor_transfer_copies():

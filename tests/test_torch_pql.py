@@ -5,8 +5,8 @@ the inclusion-exclusion and Monte-Carlo hypervolumes, the batched 2-D / 3-D
 sweeps, PQL's set algebra on identical tables (sets compared without their
 slot order: ``torch.topk`` and ``lax.top_k`` may order ties otherwise), a
 whole PQL ``train_segment`` and a whole MPMOQL OLS run with the JAX key
-chains' draws handed over.  Then the learning mirror of
-tests/test_agents_multi.py::test_pql_dst.
+chains' draws handed over.  Then the learning mirrors of
+tests/test_agents_multi.py::test_pql_dst and test_pql_3obj_hypervolume_scoring.
 """
 
 import jax
@@ -218,3 +218,14 @@ def test_pql_dst():
     assert len(front) >= 1
     tracked = pql.track_policy(state, front[0])
     assert tracked.shape == (2,)
+
+
+def test_pql_3obj_hypervolume_scoring():
+    """tests/test_agents_multi.py::test_pql_3obj_hypervolume_scoring: on
+    four-room the hypervolume-scored agent builds a non-empty local PCS of 3-vectors."""
+    ref3 = np.array([-1.0, -1.0, -1.0])
+    pql = PQL(make("four-room-v0"), ref_point=ref3, device="cpu",
+              config=PQLConfig(gamma=0.95, set_capacity=4, epsilon_decay_steps=400, action_eval="hypervolume"))
+    pql.train(total_timesteps=800, ref_point=ref3, eval_freq=800)
+    front = pql._last_front
+    assert front.shape[-1] == 3 and len(front) >= 1
