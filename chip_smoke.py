@@ -77,6 +77,24 @@ batch 64, 4 sampled weights), logs the peak device memory and runs
 hypervolume action scoring at d = 3 on four-room.  Each of the three scores
 its front on the card (4-D, 2-D, 3-D); the kernel's inputs include d = 4
 rows for the lander's archive.
+Then the harness: ``[native]`` builds the host library
+(``native/morl_native.cpp`` with g++ into ``build/``), holds its WFG
+hypervolume against the port's Python WFG at d = 2..6 and on LCN's buffer of
+exact copies (rel 1e-12), its batch against single calls and its host mask on
+4096 float32 points at d = 3 and 6 against the CUDA kernel (bitwise), and
+times both HV routes; the ``launch`` path times Envelope's ``train_segment``
+with the bf16 Q-net at the main path's config, then runs
+``cli.launch.main`` as a user does, Envelope on minecart at that config in
+bf16 (20 iterations, one evaluation of 32 weights) and GPI-LS on
+deep-sea-treasure (its known front gives ``eval/igd`` and ``eval/mul``),
+each front scored on the card; the ``checkpoint`` path saves and restores
+Envelope at the main path's config, the vectorized MORL/D population of
+``[morld_step]`` and PCN with its episodic buffer, checks every tensor,
+optimizer moment and generator state bitwise, trains on, and scores the
+original and the restored Envelope's fronts (bitwise equal) on the card; the
+``sweep`` path runs ``cli.sweep.main`` with successive halving over
+``configs/sweeps/envelope.json`` on deep-sea-treasure (4 trials x 2 seeds,
+2 rungs), each trial's front scored on the card, and checks the JSONL.
 MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
@@ -88,12 +106,14 @@ second-to-last line is a JSON record of the kernels, the last line
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -134,13 +154,17 @@ from morl_baselines_torch.agents import (
     PGMORLConfig,
     PQLConfig,
 )
+from morl_baselines_torch.agents.base import state_tree
 from morl_baselines_torch.agents.ipro import make_linear_u
+from morl_baselines_torch.cli import experiments, launch, sweep
+from morl_baselines_torch.core.indicators import _hv_wfg
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import VectorMOEnv, fishwood_utility, lander_heuristic, make
 from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics, rollout_episode
 from morl_baselines_torch.evaluation import evaluation as evaluation_module
 from morl_baselines_torch.ops import _build
 from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
+from morl_baselines_torch.utils import native
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): float32 outside the tensor cores, HBM3
 PEAK_F32_OPS = 67e12
@@ -298,6 +322,16 @@ PIXEL_TRAIN_STEPS = 40 * 64
 PQL4_CONFIG = PQLConfig(gamma=0.95, set_capacity=4, epsilon_decay_steps=400, action_eval="hypervolume")
 PQL4_STEPS = 800
 FOUR_ROOM_REF_POINT = np.array([-1.0, -1.0, -1.0])
+
+# the harness: the launcher drives the main path's config with the bf16 Q-net; learning starts after the
+# first of its iterations, and one evaluation of 32 weights (1000 steps) ends the run
+BF16_CONFIG = dataclasses.replace(CONFIG, bf16=True)
+LAUNCH_ITERS = 20
+GPILS_LAUNCH_STEPS = 2_000  # two GPI-LS iterations on deep-sea-treasure at GPILSConfig's defaults
+CKPT_ITERS = 3  # Envelope iterations before the checkpoint and after the restore
+CKPT_EVAL_STEPS = 200  # the restored and the original Envelope's evaluation, cut from 1000 steps
+SWEEP_STEPS = 4_000  # the last rung's budget on deep-sea-treasure (the first rung's is half)
+SWEEP_SPACE = Path(__file__).resolve().parent / "configs" / "sweeps" / "envelope.json"
 
 
 def log(msg: str) -> None:
@@ -518,9 +552,9 @@ def timed_row(family: str, pts, valid, keep: bool) -> dict:
     )
 
 
-def phase_train_segment(smi: str) -> None:
+def phase_train_segment(smi: str, cfg: EnvelopeConfig = CONFIG, tag: str = "train_segment") -> None:
     env = make("minecart-v0")
-    agent = Envelope(env, CONFIG)
+    agent = Envelope(env, cfg)
     state = agent.init_state()
     state = agent.train_segment(state, 2)  # warm: first learn steps, allocator, cuBLAS handles
     torch.cuda.synchronize()
@@ -532,18 +566,20 @@ def phase_train_segment(smi: str) -> None:
     steps = 22 * NUM_ENVS
     if state.global_step != steps or state.iter_count != 22:
         raise AssertionError(f"global_step {state.global_step} != {steps}")
-    if state.buffer.size != min(steps, CONFIG.buffer_size):
+    if state.buffer.size != min(steps, cfg.buffer_size):
         raise AssertionError(f"buffer size {state.buffer.size}")
     if not _params_finite(state.ts.net):
         raise AssertionError("non-finite Q-net params")
     if not math.isfinite(float(state.loss)):
         raise AssertionError(f"non-finite loss {float(state.loss)}")
     log(
-        f"[train_segment] minecart num_envs={NUM_ENVS} hidden={CONFIG.hidden} gradient_updates=16: "
+        f"[{tag}] minecart num_envs={NUM_ENVS} hidden={cfg.hidden} gradient_updates=16 bf16={cfg.bf16}: "
         f"{iters} iters in {dt:.3f} s = {iters * NUM_ENVS / dt:.0f} env-steps/s, "
         f"{1e3 * dt / iters:.2f} ms/iter, loss {float(state.loss):.4g} [{smi}]"
     )
-    profile_window(lambda: agent.train_segment(state, 3), "3 iters")
+    prof = profile_window(lambda: agent.train_segment(state, 3), f"{tag} 3 iters")
+    if prof:
+        log(f"[{tag}] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms an iteration")
 
 
 def profile_window(fn, what: str, cpu: bool = True, top: int = 8) -> dict | None:
@@ -1440,6 +1476,234 @@ def phase_envelope_pixel(smi: str) -> int:
     return score_on_card(agent._last_front, host, DST_REF_POINT)
 
 
+def native_front(rng, n: int, d: int) -> np.ndarray:
+    """A float64 front for the host hypervolume: ``sphere`` points and scaled
+    (dominated) copies of a third of them."""
+    pts = sphere(rng, n, d).astype(np.float64)
+    return np.concatenate([pts, pts[: n // 3] * rng.uniform(0.2, 0.95, size=(n // 3, 1))])
+
+
+def lcn_buffer(rng) -> np.ndarray:
+    """LCN's 128-episode buffer on fruit-tree: a few distinct 6-D returns, each repeated many times."""
+    leaves = sphere(rng, 6, 6).astype(np.float64) * 10.0
+    return leaves[rng.integers(0, len(leaves), size=128)]
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host time of one call of ``fn``, in ms."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_native(smi: str) -> dict:
+    """The host library (``utils/native.py``): built from ``native/morl_native.cpp``
+    into ``build/``; its WFG held against the port's Python WFG at d = 2..6 and
+    on LCN's buffer of exact copies (rel 1e-12), its batch against single
+    calls, its host mask against the CUDA kernel on float32 points (bitwise);
+    both HV routes timed on a 2-D front of PGMORL's task selection and on
+    LCN's 6-D buffer."""
+    lib, secs = native.build()
+    log(f"[native] {' '.join(native.compile_command(lib))}: {secs:.2f} s -> {lib}")
+    rng = np.random.default_rng(9)
+    for d, n in ((2, 300), (3, 90), (4, 36), (5, 21), (6, 15)):
+        pts, ref = native_front(rng, n, d), np.full(d, -0.1)
+        got, want = native.hv_exact(pts, ref), _hv_wfg(pts, ref)
+        if not math.isclose(got, want, rel_tol=1e-12):
+            raise AssertionError(f"native HV {got!r} != Python WFG {want!r} at d={d}")
+    lcn = lcn_buffer(rng)
+    got, want, distinct = native.hv_exact(lcn, np.zeros(6)), _hv_wfg(lcn, np.zeros(6)), _hv_wfg(np.unique(lcn, axis=0), np.zeros(6))
+    if not (math.isclose(got, want, rel_tol=1e-12) and math.isclose(got, distinct, rel_tol=1e-12)):
+        raise AssertionError(f"native HV {got!r} on LCN's copies != Python {want!r} / distinct rows {distinct!r}")
+    fronts = np.stack([native_front(rng, 24, 3)[:24] for _ in range(6)])
+    batch = native.hv_exact_batch(fronts, np.zeros(3))
+    if not np.array_equal(batch, [native.hv_exact(f, np.zeros(3)) for f in fronts]):
+        raise AssertionError(f"native HV batch {batch} != single calls")
+    for d in (3, 6):
+        pts = np.concatenate([sphere(rng, 2048, d), sphere(rng, 1024, d) * np.float32(0.9)])
+        pts = np.concatenate([pts, pts[rng.integers(0, len(pts), size=1024)]])  # 4096 rows, exact copies among them
+        host = native.pareto_mask(pts.astype(np.float64))
+        dev = non_dominated_mask_cuda(torch.as_tensor(pts, device="cuda"), keep_duplicates=True).cpu().numpy()
+        if not np.array_equal(host, dev):
+            raise AssertionError(f"host mask != CUDA kernel at d={d}: {int((host != dev).sum())} rows differ")
+        log(f"[native] pareto_mask on 4096 x {d} float32 points: {int(host.sum())} kept, bitwise equal to the CUDA kernel")
+    pg = native_front(rng, 12, 2)[:16]
+    out = {}
+    for name, pts, ref in (("pgmorl_2d_16", pg, np.full(2, -0.1)), ("lcn_6d_128", lcn, np.zeros(6))):
+        out[name] = {"native_ms": host_ms(lambda: native.hv_exact(pts, ref)), "python_ms": host_ms(lambda: _hv_wfg(pts, ref))}
+    log(f"[native] HV at d = 2..6 and on LCN's copies equal to the Python WFG (rel 1e-12), the batch bitwise; ms a call: "
+        f"{json.dumps(out)} [{smi}]")
+    return out
+
+
+class ScoredEnvelope(Envelope):
+    """Envelope whose every ``train`` also scores its last front on the card,
+    so a CLI's runs launch the mask kernel.  ``train`` keeps Envelope's
+    signature, which the CLIs read to pass ``ref_point``."""
+
+    @functools.wraps(Envelope.train)
+    def train(self, *args, **kwargs):
+        state = super().train(*args, **kwargs)
+        if kwargs.get("ref_point") is not None:
+            score_on_card(self._last_front, self._last_metrics, np.asarray(kwargs["ref_point"]))
+        return state
+
+
+def phase_launch(smi: str) -> int:
+    """``cli.launch.main`` as a user runs it: Envelope on minecart at
+    ``bench.py``'s widths with the bf16 Q-net for ``LAUNCH_ITERS`` iterations and
+    one evaluation of 32 weights, the front scored on the card; then GPI-LS on
+    deep-sea-treasure, whose known front gives ``eval/igd`` and ``eval/mul``."""
+    hyper = [f"{k}:{v!r}" for k, v in dataclasses.asdict(BF16_CONFIG).items() if v != getattr(EnvelopeConfig(), k)]
+    total = LAUNCH_ITERS * NUM_ENVS
+    t0 = time.perf_counter()
+    agent = launch.main(["--algo", "envelope", "--env-id", "minecart-v0", "--ref-point", *map(str, REF_POINT),
+                         "--num-timesteps", str(total), "--init-hyperparams", *hyper,
+                         "--train-hyperparams", f"eval_freq:{total}", "num_eval_weights_for_front:32", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not agent.cfg.bf16 or agent.cfg.num_envs != NUM_ENVS:
+        raise AssertionError(f"the launcher built {agent.cfg}")
+    host = agent._last_metrics
+    log(f"[launch] envelope minecart-v0 {' '.join(hyper)}: {total} steps + 1 evaluation in {wall:.2f} s; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    launched = score_on_card(agent._last_front, host, REF_POINT)
+    t0 = time.perf_counter()
+    agent = launch.main(["--algo", "gpi_ls_discrete", "--env-id", "deep-sea-treasure-v0", "--ref-point", *map(str, DST_REF_POINT),
+                         "--num-timesteps", str(GPILS_LAUNCH_STEPS), "--train-hyperparams",
+                         f"timesteps_per_iter:{GPILS_LAUNCH_STEPS // 2}", "num_eval_weights_for_front:32", "--device", "cuda"])
+    torch.cuda.synchronize()
+    host = agent._last_metrics
+    if not {"eval/igd", "eval/mul"} <= set(host) or not all(math.isfinite(v) for v in host.values()):
+        raise AssertionError(f"GPI-LS through the launcher logged {host}")
+    log(f"[launch] gpi_ls_discrete deep-sea-treasure-v0 {GPILS_LAUNCH_STEPS} steps in {time.perf_counter() - t0:.2f} s; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
+    return launched + score_on_card(agent._last_front, host, DST_REF_POINT)
+
+
+def trees_equal(a, b) -> bool:
+    """Bitwise equality of two ``state_tree``s."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    return a == b or (isinstance(a, float) and math.isnan(a) and math.isnan(b))
+
+
+def round_trip(agent, state, tag: str, path) -> tuple:
+    """Save ``state``, load it into a fresh template and check every tensor,
+    parameter, optimizer moment and generator state bitwise; returns (restored, record)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.save(state, path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    template = fresh_template(agent, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = agent.load(template, path)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    if not trees_equal(state_tree(state), state_tree(restored)):
+        raise AssertionError(f"[{tag}] the restored state differs from the saved one")
+    rec = {"bytes": path.stat().st_size, "save_ms": save_ms, "load_ms": load_ms}
+    log(f"[checkpoint] {tag}: {rec['bytes'] / 2**20:.2f} MiB, save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+        f"every tensor, parameter, optimizer moment and generator state bitwise equal")
+    return restored, rec
+
+
+def fresh_template(agent, state):
+    """A new state of the same agent, from another seed, in ``state``'s layout."""
+    if isinstance(state, tuple):  # a MOSAC population state and its member buffers
+        return agent.init_state([100 + p for p in range(state[0].members)]), agent.make_buffer(state[0].members)
+    return agent.init_state(seed=100)
+
+
+def phase_checkpoint(smi: str) -> int:
+    """Checkpoints on the card: Envelope at the main path's config (its
+    131,072-row buffer included), the vectorized MORL/D population of
+    ``[morld_step]`` and PCN with its episodic buffer.  Each trains a little,
+    is saved and loaded into a fresh template (bitwise), and trains on.  The
+    original and restored Envelope evaluate 32 weights with one generator
+    seed; both fronts are scored on the card and must be bitwise equal."""
+    import tempfile
+
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        agent = Envelope(make("minecart-v0"), CONFIG)
+        state = agent.train_segment(agent.init_state(), CKPT_ITERS)
+        restored, records["envelope"] = round_trip(agent, state, "envelope", Path(tmp) / "envelope" / "state.pt")
+        weights = torch.as_tensor(equally_spaced_weights(3, 32), dtype=torch.float32, device="cuda")
+        fronts = [agent._eval_front(s.ts.net, weights, 1, CKPT_EVAL_STEPS, torch.Generator("cuda").manual_seed(7)).cpu().numpy()
+                  for s in (state, restored)]
+        if not np.array_equal(*fronts):
+            raise AssertionError("the restored Envelope's front differs from the original's")
+        launched = 0
+        for front in fronts:
+            launched += score_on_card(front, multi_policy_metrics(front, REF_POINT, equally_spaced_weights(3, 32)), REF_POINT)
+        agent.train_segment(restored, CKPT_ITERS)
+        if restored.global_step != 2 * CKPT_ITERS * NUM_ENVS:
+            raise AssertionError(f"restored Envelope global_step {restored.global_step}")
+
+        algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+        member, seg_iters = algo.population[0], MORLD_CONFIG.exchange_every // MORLD_CONFIG.sac.num_envs
+        weights = torch.as_tensor(np.stack(algo.weights), device="cuda")
+        pop = (member.init_state(list(range(POP))), member.make_buffer(POP))
+        algo._pop_step(*pop, weights, seg_iters, MORLD_CONFIG.update_passes)
+        (rstate, rbuffer), records["morld"] = round_trip(member, pop, "morld", Path(tmp) / "morld.pt")
+        algo._pop_step(rstate, rbuffer, weights, seg_iters, MORLD_CONFIG.update_passes)
+        n = 2 * seg_iters * MORLD_CONFIG.sac.num_envs
+        if rstate.global_step != n or rstate.iter_count != 2 * seg_iters or rbuffer.size != min(n, rbuffer.capacity):
+            raise AssertionError(f"restored MORL/D global_step {rstate.global_step}, buffer {rbuffer.size}")
+
+        pcn = PCN(make("minecart-deterministic-v0"), PCN_CONFIG)
+        pstate = pcn.train(total_timesteps=2 * PCN_CONFIG.num_envs * PCN_CONFIG.max_episode_len, num_er_episodes=PCN_CONFIG.num_envs)
+        restored, records["pcn"] = round_trip(pcn, pstate, "pcn", Path(tmp) / "pcn.pt")
+        steps = pstate.global_step
+        pcn.train_round(restored)
+        if restored.global_step <= steps or restored.buffer.size < pstate.buffer.size:
+            raise AssertionError(f"restored PCN global_step {restored.global_step}, buffer {restored.buffer.size}")
+    log(f"[checkpoint] {json.dumps(records)} [{smi}]")
+    return launched
+
+
+def phase_sweep(smi: str) -> int:
+    """``cli.sweep.main`` with successive halving over ``configs/sweeps/envelope.json``
+    on deep-sea-treasure at the default widths: 4 trials x 2 seeds, 2 rungs;
+    every trial's front scored on the card; the JSONL holds one line per
+    (trial, rung) whose ``avg_hypervolume`` is the mean of its seeds'."""
+    import tempfile
+
+    before = experiments.ALGOS["envelope"]
+    experiments.ALGOS["envelope"] = ScoredEnvelope
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "sweep.jsonl"
+            t0 = time.perf_counter()
+            sweep.main(["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", *map(str, DST_REF_POINT),
+                        "--space-file", str(SWEEP_SPACE), "--halving", "--num-trials", "4", "--num-seeds", "2",
+                        "--rungs", "2", "--num-timesteps", str(SWEEP_STEPS), "--out", str(out), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            recs = [json.loads(line) for line in out.read_text().splitlines()]
+    finally:
+        experiments.ALGOS["envelope"] = before
+    trials = [r["trial"] for r in recs]
+    if len(recs) != 6 or sorted(t for t in trials if t.endswith("-r0")) != [f"t{i}-r0" for i in range(4)]:
+        raise AssertionError(f"the sweep wrote {trials}")
+    for r in recs:
+        hvs = r["seed_hypervolumes"]
+        if len(hvs) != 2 or not all(math.isfinite(h) for h in hvs) or r["avg_hypervolume"] != float(np.mean(hvs)):
+            raise AssertionError(f"bad sweep record {r}")
+    log(f"[sweep] 4 trials x 2 seeds, 2 rungs of {SWEEP_STEPS // 2} and {SWEEP_STEPS} steps in {wall:.2f} s: "
+        + "; ".join(f"{r['trial']} {r['avg_hypervolume']:.4g} ({r['wall_s']:.1f} s)" for r in recs) + f" [{smi}]")
+    return len(recs)
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -1489,6 +1753,7 @@ def main() -> int:
     archive = phase_archive_add(smi)
     planar = phase_planar(smi)
     envs = phase_envs(smi)
+    host_hv = phase_native(smi)
 
     # each path's launches, counted from 0 just before it and read just after
     paths = {
@@ -1513,6 +1778,9 @@ def main() -> int:
         ),
         "envelope_pixel": lambda: phase_envelope_pixel(smi),
         "pql_four_room": lambda: phase_pql(smi, "four-room-v0", PQL4_CONFIG, PQL4_STEPS, FOUR_ROOM_REF_POINT, "pql_four_room"),
+        "launch": lambda: (phase_train_segment(smi, BF16_CONFIG, "train_segment_bf16"), phase_launch(smi)),
+        "checkpoint": lambda: phase_checkpoint(smi),
+        "sweep": lambda: phase_sweep(smi),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}
@@ -1546,6 +1814,7 @@ def main() -> int:
     }
     log(f"[planar] {json.dumps(planar)}")
     log(f"[envs] {json.dumps(envs)}")
+    log(f"[native] {json.dumps(host_hv)}")
     log(smi)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -20,7 +20,11 @@ is updated **in place**; ``global_step`` and ``iter_count`` are host
 integers, so the learn gate and the hard target sync never wait on the
 device.  Randomness comes from one ``torch.Generator`` on the device.
 
-The Q-net runs in full float32: ``resolve_device`` turns TF32 off on CUDA.
+The Q-net runs in full float32 (``resolve_device`` turns TF32 off on CUDA),
+or with ``bf16`` its Dense layers in bfloat16 at every call (the act
+forward, both nets of the envelope target, the loss and the evaluation), as
+the JAX package builds its Q-net with ``dtype=bfloat16``; params, optimizer
+and Q-values stay float32.
 The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
 optax's clip (``clip_grad_global_norm_``), then ``torch.optim.Adam`` with
 optax's betas and eps.
@@ -69,7 +73,7 @@ class EnvelopeConfig:
     per_alpha: float = 0.6
     min_priority: float = 0.01
     hidden: tuple = (256, 256, 256, 256)
-    bf16: bool = False  # bfloat16 Q-net compute: not in the port yet
+    bf16: bool = False  # bfloat16 compute in the Q-net's Dense layers (params and outputs stay f32)
     image_shape: tuple | None = None  # (k, H, W): NatureCNN trunk on flat image obs
     seed: int = 0
 
@@ -90,10 +94,9 @@ class EnvelopeState:
 
 class Envelope(MOAgentBase):
     def __init__(self, env: MOEnv, config: EnvelopeConfig = EnvelopeConfig(), log: bool = False, device="cuda"):
-        if config.bf16:
-            raise NotImplementedError("the bf16 Q-net path is not ported yet")
         super().__init__(env, config, log=log, device=device)
         self.cfg = config
+        self.dtype = torch.bfloat16 if config.bf16 else None  # the Q-net's compute dtype at every call
         self.venv = VectorMOEnv(env, config.num_envs)
 
     def make_q_net(self, gen: torch.Generator | None = None) -> EnvelopeQNet:
@@ -146,11 +149,11 @@ class Envelope(MOAgentBase):
         b, n_w, d = next_obs.shape[0], sampled_w.shape[0], self.reward_dim
         no = next_obs.repeat_interleave(n_w, dim=0)  # (B*W, O)
         ws = sampled_w.repeat(b, 1)  # (B*W, d)
-        q_online = ts.net(no, ws).reshape(b, n_w, -1, d)
+        q_online = ts.net(no, ws, self.dtype).reshape(b, n_w, -1, d)
         scal = torch.einsum("bd,bwad->bwa", w, q_online)
         best_a = torch.argmax(scal, dim=2)  # (B, W)
         best_w = torch.argmax(torch.max(scal, dim=2).values, dim=1)  # (B,)
-        q_target = ts.target_net(no, ws).reshape(b, n_w, -1, d)
+        q_target = ts.target_net(no, ws, self.dtype).reshape(b, n_w, -1, d)
         q_at_a = torch.gather(q_target, 2, best_a[:, :, None, None].expand(b, n_w, 1, d)).squeeze(2)  # (B, W, d)
         return torch.gather(q_at_a, 1, best_w[:, None, None].expand(b, 1, d)).squeeze(1)  # (B, d)
 
@@ -169,7 +172,7 @@ class Envelope(MOAgentBase):
         target_next = self._envelope_target(ts, next_obs, w, sampled_w)
         y = rewards + (1.0 - dones[:, None]) * cfg.gamma * target_next
 
-        q = ts.net(obs, w)  # (W*B, A, d)
+        q = ts.net(obs, w, self.dtype)  # (W*B, A, d)
         q_sa = torch.gather(q, 1, actions.long()[:, None, None].expand(-1, 1, self.reward_dim)).squeeze(1)
         l_mo = torch.mean((q_sa - y) ** 2)
         wq = torch.sum(q_sa * w, dim=-1)
@@ -223,7 +226,7 @@ class Envelope(MOAgentBase):
 
     @torch.no_grad()
     def _greedy_actions(self, net: EnvelopeQNet, obs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-        q = net(obs, weights)  # (N, A, d)
+        q = net(obs, weights, self.dtype)  # (N, A, d)
         return torch.argmax(torch.einsum("nd,nad->na", weights, q), dim=-1)
 
     def train_segment(self, state: EnvelopeState, num_iters: int) -> EnvelopeState:

@@ -2,10 +2,12 @@
 
 from .pareto import (
     batched_pareto_dominates,
+    filter_convex_dominated,
     filter_pareto_dominated,
     get_non_dominated_inds,
     lorenz_dominates,
     lorenz_vector,
+    non_dominated_count,
     non_dominated_mask,
     pareto_dominates,
     strict_pareto_dominates,
@@ -34,6 +36,7 @@ __all__ = [
     "equally_spaced_weights",
     "expected_utility",
     "extrema_weights",
+    "filter_convex_dominated",
     "filter_pareto_dominated",
     "get_non_dominated_inds",
     "hypervolume",
@@ -45,6 +48,7 @@ __all__ = [
     "lorenz_dominates",
     "lorenz_vector",
     "maximum_utility_loss",
+    "non_dominated_count",
     "non_dominated_mask",
     "pareto_dominates",
     "random_weights",

@@ -6,8 +6,8 @@ morl_baselines/common/performance_indicators.py:15-128):
 - ``hypervolume_2d`` / ``hypervolume_3d``: exact sort-and-sweep on the
   tensor's device; ``hypervolume_small_exact`` (inclusion–exclusion, any d,
   N <= 20) and ``hypervolume_mc`` (Monte-Carlo, any d) for PQL's action
-  sets; ``hypervolume``: exact WFG recursion on the host (the port's own
-  numpy copy).
+  sets; ``hypervolume``: exact WFG on the host, by the native C++ library
+  (``utils/native.py``), the port's own numpy copy beyond 64 objectives.
 - ``expected_utility`` (EUM), ``maximum_utility_loss`` (MUL),
   ``cardinality``, ``igd``, ``sparsity``: tensor reductions over
   (front, weights).
@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import native
 from .pareto import non_dominated_mask
 
 
@@ -195,7 +196,9 @@ def _hv_wfg(points: np.ndarray, ref: np.ndarray) -> float:
 def hypervolume(front, ref_point, valid=None) -> float:
     """Exact hypervolume on the host (reference performance_indicators.py:15).
 
-    Accepts numpy arrays or tensors; applies the valid mask.
+    Accepts numpy arrays or tensors; applies the valid mask.  The native C++
+    WFG (``utils/native.py``) computes it, as in the JAX package; the Python
+    WFG only where the library refuses (more than 64 objectives).
     """
     if isinstance(front, torch.Tensor):
         front = front.detach().cpu().numpy()
@@ -207,7 +210,8 @@ def hypervolume(front, ref_point, valid=None) -> float:
         front = front[np.asarray(valid)]
     if len(front) == 0:
         return 0.0
-    return _hv_wfg(front, ref)
+    out = native.hv_exact(front, ref)
+    return _hv_wfg(front, ref) if out is None else out
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,17 @@ PyTorch port of ``morl_baselines_tpu/core/pareto.py``.  Convention:
 ``(N, d)`` tensor plus a boolean ``valid`` mask of shape ``(N,)``.
 
 The host helpers (``filter_pareto_dominated``, ``get_non_dominated_inds``)
-compare in float32, as the JAX package does with x64 off.
+compare in float32, as the JAX package does with x64 off, except where
+``filter_pareto_dominated`` hands a large archive to the native mask, which
+compares in float64, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import native
 
 
 def pareto_dominates(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -78,13 +82,56 @@ def non_dominated_mask(
     return mask
 
 
+def non_dominated_count(points: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Number of non-dominated rows (cardinality, a 0-d tensor on the points' device)."""
+    return torch.sum(non_dominated_mask(points, valid))
+
+
 def filter_pareto_dominated(points: np.ndarray, keep_duplicates: bool = True) -> np.ndarray:
-    """Host-side compacting filter (reference pareto.py:60-73 semantics)."""
+    """Host-side compacting filter (reference pareto.py:60-73 semantics).
+
+    Archives of 256 rows or more with duplicates kept go through the native
+    O(N^2 d) mask (``utils/native.py``, float64), as in the JAX package.
+    """
     points = np.asarray(points)
     if len(points) == 0:
         return points
+    if keep_duplicates and len(points) >= 256:
+        return points[native.pareto_mask(points)]
     mask = non_dominated_mask(torch.as_tensor(points, dtype=torch.float32), keep_duplicates=keep_duplicates)
     return points[mask.numpy()]
+
+
+def filter_convex_dominated(points: np.ndarray) -> np.ndarray:
+    """Keep only the points of the convex coverage set (CCS).
+
+    A point is convex-dominated iff some convex combination of the other
+    non-dominated points weakly dominates it (by 1e-9); one scipy ``linprog``
+    feasibility problem per point decides it, as in the JAX package (the
+    reference uses scipy's ConvexHull, pareto.py:76-93).
+    """
+    from scipy.optimize import linprog
+
+    points = np.asarray(points, dtype=np.float64)
+    nd = filter_pareto_dominated(points, keep_duplicates=False)
+    n = nd.shape[0]
+    if n <= 2:
+        return nd
+    keep = np.ones(n, dtype=bool)
+    for i in range(n):
+        others = nd[np.arange(n) != i]
+        # alpha >= 0, sum alpha = 1, others^T alpha >= nd[i] + 1e-9 feasible -> convex-dominated
+        res = linprog(
+            c=np.zeros(n - 1),
+            A_ub=-others.T,
+            b_ub=-nd[i] - 1e-9,
+            A_eq=np.ones((1, n - 1)),
+            b_eq=np.array([1.0]),
+            bounds=[(0, 1)] * (n - 1),
+            method="highs",
+        )
+        keep[i] = res.status != 0
+    return nd[keep]
 
 
 def get_non_dominated_inds(points: np.ndarray) -> np.ndarray:

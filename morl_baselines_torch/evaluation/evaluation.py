@@ -29,6 +29,7 @@ from ..core.indicators import (
 from ..core.pareto import filter_pareto_dominated
 from ..envs.base import MOEnv
 from ..ops.pareto_kernel import non_dominated_mask_auto
+from ..utils.device import resolve_device
 
 # steps between the host reads that end a rollout once every episode is done
 _DONE_CHECK_EVERY = 32
@@ -156,3 +157,75 @@ def device_front_metrics(
     if front.shape[-1] == 2:
         out["eval/hypervolume"] = hypervolume_2d(front, ref_point, valid)
     return out
+
+
+def seed_everything(seed: int, device="cuda") -> torch.Generator:
+    """Seed every global RNG and return a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (reference common/evaluation.py:203-219).
+
+    Seeds python's ``random``, ``PYTHONHASHSEED``, numpy's global state and
+    torch's (``torch.manual_seed``, every device).  The port's device-side
+    randomness flows through explicit generators, as the JAX package's flows
+    through the key this returns there; the host-side outer loops (LinearSupport
+    tie-breaks, PGMORL's scipy fits) still read the global states.
+    """
+    import os
+    import random
+
+    random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator(resolve_device(device)).manual_seed(seed)
+
+
+def log_episode_info(
+    finished,
+    scalarization: Callable,
+    weights: np.ndarray | None,
+    global_step: int,
+    id: int | None = None,
+    verbose: bool = False,
+    logger=None,
+) -> dict:
+    """Log completed-episode statistics (reference common/evaluation.py:221-277).
+
+    ``finished`` is the batched ``EpisodeStats`` row-set emitted by
+    ``EpisodeStats.update`` (rows with length 0 are not completed episodes and
+    are ignored); the statistics are means over the episodes that finished
+    this step, in numpy as the JAX package takes them.  ``scalarization`` gets
+    float32 tensors: ``scalarization(ret)``, or ``scalarization(ret, w)`` when
+    ``weights`` is given.  Metric keys match the reference.  Returns the metric
+    dict; also sends it to ``logger`` (a MetricLogger) when given.
+    """
+    length_all = finished.length.cpu().numpy()
+    mask = length_all > 0
+    if not mask.any():
+        return {}
+    ret = finished.ret.cpu().numpy()[mask].mean(axis=0)
+    disc = finished.disc_ret.cpu().numpy()[mask].mean(axis=0)
+    length = float(length_all[mask].mean())
+    ret_t, disc_t = torch.as_tensor(ret), torch.as_tensor(disc)
+    if weights is None:
+        scal, disc_scal = scalarization(ret_t), scalarization(disc_t)
+    else:
+        w = torch.as_tensor(np.asarray(weights), dtype=ret_t.dtype)
+        scal, disc_scal = scalarization(ret_t, w), scalarization(disc_t, w)
+    idstr = f"_{id}" if id is not None else ""
+    metrics = {
+        f"charts{idstr}/timesteps_per_episode": length,
+        f"metrics{idstr}/scalarized_episode_return": float(scal),
+        f"metrics{idstr}/discounted_scalarized_episode_return": float(disc_scal),
+    }
+    for i in range(ret.shape[0]):
+        metrics[f"metrics{idstr}/episode_return_obj_{i}"] = float(ret[i])
+        metrics[f"metrics{idstr}/disc_episode_return_obj_{i}"] = float(disc[i])
+    if verbose:
+        print(
+            f"Episode infos (mean over {int(mask.sum())} finished): steps={length:.1f}, "
+            f"return={ret}, discounted={disc}, scalarized={float(scal):.4g} "
+            f"(disc {float(disc_scal):.4g})"
+        )
+    if logger is not None:
+        logger.log(metrics, global_step)
+    return metrics

@@ -155,7 +155,12 @@ class MLP(nn.Module):
         self, x: torch.Tensor, dropout_gen: torch.Generator | None = None, dtype: torch.dtype | None = None
     ) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x) if dtype is None else layer(x, dtype)
+            if dtype is None:
+                x = layer(x)
+            elif isinstance(layer, nn.Linear):  # flax Dense(dtype=...): input and params cast
+                x = F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+            else:
+                x = layer(x, dtype)
             if i < self.n_hidden:
                 if self.dropout_rate > 0 and dropout_gen is not None:
                     x = dropout(x, self.dropout_rate, dropout_gen)
@@ -316,11 +321,13 @@ class EnvelopeQNet(nn.Module):
             obs_dim = cnn_features
         self.mlp = MLP(obs_dim + reward_dim, hidden, num_actions * reward_dim, gen)
 
-    def forward(self, obs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``dtype`` (bfloat16) computes the MLP head's Dense layers in it, with
+        float32 outputs; the NatureCNN trunk stays float32, as in the JAX package."""
         if self.image_shape is not None:
             lead = obs.shape[:-1]
             obs = self.cnn(obs.reshape(-1, *self.image_shape)).reshape(*lead, -1)
-        x = self.mlp(torch.cat([obs, w], dim=-1))
+        x = self.mlp(torch.cat([obs, w], dim=-1), dtype=dtype)
         return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
 
     def flax_layout(self) -> dict:
@@ -492,6 +499,17 @@ class MemberAdam:
         for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
             denom = (v.sqrt() / _lead(bc2_sqrt, v)).add_(self.eps)
             p.addcdiv_(m * _lead(-self.lr / bc1, m), denom)
+
+    def state_dict(self) -> dict:
+        """The moments and step counts (tensors; the hyperparameters are the constructor's)."""
+        return {"exp_avg": list(self.exp_avg), "exp_avg_sq": list(self.exp_avg_sq), "step_count": self.step_count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict``'s moments and step counts in, onto this optimizer's device."""
+        for dst, src in zip(self.exp_avg + self.exp_avg_sq, state["exp_avg"] + state["exp_avg_sq"]):
+            dst.copy_(src)
+        self.step_count.copy_(state["step_count"])
 
     def member_state(self, p: int) -> dict:
         """Copies of member p's moments and step count."""

@@ -1,10 +1,15 @@
 """Device-resident replay buffers, updated in place."""
 
+from .accrued import AccruedRewardReplayBuffer, AccruedTransition
 from .buffer import MemberReplayBuffer, ReplayBuffer, Transition
+from .diverse import DiverseMemory
 from .episodic import EpisodeBatch, EpisodicBuffer, crowding_distance
 from .prioritized import PrioritizedReplayBuffer
 
 __all__ = [
+    "AccruedRewardReplayBuffer",
+    "AccruedTransition",
+    "DiverseMemory",
     "EpisodeBatch",
     "EpisodicBuffer",
     "MemberReplayBuffer",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -74,6 +75,20 @@ class ReplayBuffer:
     def gather(self, idx: torch.Tensor) -> Transition:
         """The rows at ``idx``, as the storage's own row type."""
         return type(self.data)(*(x[idx] for x in self.data))
+
+    def add(self, tr: Transition) -> "ReplayBuffer":
+        """Insert one transition (fields without the leading batch dim), in place."""
+        return self.add_batch(type(tr)(*(torch.as_tensor(x, device=self.data.obs.device)[None] for x in tr)))
+
+    def get_all_data(self, max_samples: int | None = None) -> Transition:
+        """The valid rows as host numpy arrays (reference buffer.py:126-135);
+        above ``max_samples`` rows, a subset drawn without replacement by
+        ``np.random.default_rng(0)``, as the JAX package draws it."""
+        rows = type(self.data)(*(x[: self.size].cpu().numpy() for x in self.data))
+        if max_samples is not None and self.size > max_samples:
+            sel = np.random.default_rng(0).choice(self.size, max_samples, replace=False)
+            rows = type(rows)(*(x[sel] for x in rows))
+        return rows
 
     def sample(self, gen: torch.Generator, batch_size: int, use_cer: bool = False) -> Transition:
         """Uniform sample of batch_size transitions (with replacement).

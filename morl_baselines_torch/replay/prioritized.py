@@ -15,6 +15,15 @@ import torch
 from .buffer import ReplayBuffer, Transition, _storage
 
 
+def proportional_indices(priorities: torch.Tensor, u: torch.Tensor):
+    """Rows drawn in proportion to ``priorities`` (C,) at uniforms ``u`` in
+    [0, 1): the inverse CDF of the cumulative priorities.  Returns (idx, probs)."""
+    cdf = torch.cumsum(priorities, dim=0)
+    total = torch.clamp(cdf[-1], min=1e-12)
+    idx = torch.clamp(torch.searchsorted(cdf, u * total, right=True), 0, priorities.shape[0] - 1)
+    return idx, priorities[idx] / total
+
+
 class PrioritizedReplayBuffer(ReplayBuffer):
     def __init__(self, data: Transition):
         super().__init__(data)
@@ -54,10 +63,8 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         Inverse CDF on the cumulative priorities, as SumTree.sample's
         proportional scheme (reference :30-54).  Returns (batch, idx, probs).
         """
-        cdf = torch.cumsum(self.priorities, dim=0)
-        total = torch.clamp(cdf[-1], min=1e-12)
-        idx = torch.clamp(torch.searchsorted(cdf, u * total, right=True), 0, self.capacity - 1)
-        return self.gather(idx), idx, self.priorities[idx] / total
+        idx, probs = proportional_indices(self.priorities, u)
+        return self.gather(idx), idx, probs
 
     def update_priorities(self, idx: torch.Tensor, priorities: torch.Tensor) -> "PrioritizedReplayBuffer":
         """Scatter new priorities, tracking the running max (reference :197-205)."""

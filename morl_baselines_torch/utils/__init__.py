@@ -1,5 +1,15 @@
 from .device import resolve_device
-from .logging import MetricLogger
+from .logging import MetricLogger, reset_wandb_env
+from .profiling import PhaseTimer, trace
 from .schedules import linearly_decaying_value, nearest_neighbors, unique_tol
 
-__all__ = ["MetricLogger", "linearly_decaying_value", "nearest_neighbors", "resolve_device", "unique_tol"]
+__all__ = [
+    "MetricLogger",
+    "PhaseTimer",
+    "linearly_decaying_value",
+    "nearest_neighbors",
+    "reset_wandb_env",
+    "resolve_device",
+    "trace",
+    "unique_tol",
+]

@@ -49,3 +49,14 @@ class MetricLogger:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+
+
+def reset_wandb_env() -> None:
+    """Clear the per-run ``WANDB_*`` environment variables so a child sweep
+    worker starts fresh (reference common/utils.py:110-123); the project,
+    entity and API-key variables stay, so the worker still knows where to log."""
+    import os
+
+    keep = {"WANDB_PROJECT", "WANDB_ENTITY", "WANDB_API_KEY"}
+    for k in [k for k in os.environ if k.startswith("WANDB_") and k not in keep]:
+        del os.environ[k]

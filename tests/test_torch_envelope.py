@@ -267,3 +267,66 @@ def test_train_segment_bookkeeping():
     assert all(not torch.equal(a, b) for a, b in zip(before, state.ts.target_net.parameters()))
     assert np.isfinite(float(state.loss))
     assert state.weights.shape == (8, 3) and torch.allclose(state.weights.sum(-1), torch.ones(8))
+
+
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-2  # bf16 keeps 8 mantissa bits; XLA and torch may round the dots' sums differently
+
+
+def test_bf16_q_net_forward_parity():
+    """``EnvelopeConfig(bf16=True)``: the JAX Q-net is built with
+    ``dtype=bfloat16``, and the port's forward given ``torch.bfloat16`` computes
+    every Dense in bf16 from float32 params; both return float32."""
+    jagent, tagent = _agents("minecart-v0", bf16=True)
+    assert tagent.dtype == torch.bfloat16
+    params = _flax_params(jagent, 0)
+    net = _to_torch(tagent, params)
+    rng = np.random.default_rng(0)
+    obs = rng.uniform(size=(64, 7)).astype(np.float32)
+    w = rng.dirichlet(np.ones(3), size=64).astype(np.float32)
+    want = np.asarray(jagent.q_net.apply(params, jnp.asarray(obs), jnp.asarray(w)))
+    got = net(torch.as_tensor(obs), torch.as_tensor(w), torch.bfloat16)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=BF16_RTOL, atol=BF16_ATOL)
+    # bf16 is not float32: the rounding shows
+    f32 = net(torch.as_tensor(obs), torch.as_tensor(w)).detach().numpy()
+    assert not np.array_equal(f32, got.detach().numpy())
+    actions = tagent._greedy_actions(net, torch.as_tensor(obs), torch.as_tensor(w))
+    jactions = np.asarray(jagent._greedy_actions(params, jnp.asarray(obs), jnp.asarray(w)))
+    assert (actions.numpy() == jactions).mean() >= 0.9
+
+
+def test_bf16_update_parity():
+    """One update of the bf16 agent against the JAX bf16 agent with carried
+    params and the JAX key's sampled weights: the envelope target, the loss and
+    the TD errors agree at the bf16 tolerance; params stay float32."""
+    jagent, tagent = _agents("minecart-v0", bf16=True)
+    params = _flax_params(jagent, 3)
+    jts = jagent.init_state(jax.random.key(0)).ts.replace(params=params, target_params=_flax_params(jagent, 4))
+    tts = tagent.make_train_state(_to_torch(tagent, params))
+    load_flax_params(tts.target_net, jax.tree.map(np.asarray, jts.target_params))
+    b = _batch(np.random.default_rng(3), tagent, 16)
+    jbatch = JTransition(**{k: jnp.asarray(v) for k, v in b.items()})
+    key, lam = jax.random.key(10), 0.3
+    sw = np.array(j_random_weights(jax.random.split(key)[0], jagent.reward_dim, n=jagent.cfg.num_sample_w, dist="gaussian"))
+    w = np.repeat(sw, 16, axis=0)
+    want_t = np.asarray(jagent._envelope_target(jts, jnp.tile(jbatch.next_obs, (3, 1)), jnp.asarray(w), jnp.asarray(sw)))
+    got_t = tagent._envelope_target(tts, torch.as_tensor(b["next_obs"]).repeat(3, 1), torch.as_tensor(w), torch.as_tensor(sw))
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=BF16_RTOL, atol=BF16_ATOL)
+    _, jloss, jtd = jax.jit(jagent._update)(jts, jbatch, key, lam)
+    before = [p.detach().clone() for p in tts.net.parameters()]
+    tloss, ttd = tagent._update(tts, Transition(**{k: torch.as_tensor(v) for k, v in b.items()}), torch.as_tensor(sw), lam)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=BF16_RTOL)
+    np.testing.assert_allclose(ttd.numpy(), np.asarray(jtd), rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert all(p.dtype == torch.float32 and not torch.equal(p, q) for p, q in zip(tts.net.parameters(), before))
+
+
+def test_bf16_train_segment_and_eval():
+    """The whole bf16 loop runs: act, store, learn, target sync, evaluation."""
+    env = make("deep-sea-treasure-v0")
+    cfg = EnvelopeConfig(num_envs=4, buffer_size=256, batch_size=8, hidden=(16, 16), learning_starts=16,
+                         num_sample_w=2, bf16=True, target_net_update_freq=5)
+    agent = Envelope(env, cfg, device="cpu")
+    state = agent.train(total_timesteps=400, ref_point=np.array([0.0, -50.0]), eval_freq=200,
+                        num_eval_weights_for_front=4, eval_max_steps=40)
+    assert state.global_step == 400 and np.isfinite(float(state.loss))
+    assert agent._last_front.shape == (4, 2) and np.isfinite(agent._last_metrics["eval/hypervolume"])

@@ -89,6 +89,9 @@ def test_port_imports_no_jax():
     later |= {"morl_baselines_torch.replay.episodic", "morl_baselines_torch.envs.fruit_tree"}
     later |= {f"morl_baselines_torch.envs.{m}" for m in ("lunar_lander", "four_room", "resource_gathering",
                                                           "breakable_bottles", "highway", "pixel", "wrappers")}
+    later |= {f"morl_baselines_torch.cli.{m}" for m in ("experiments", "launch", "sweep")}
+    later |= {"morl_baselines_torch.utils.native", "morl_baselines_torch.utils.profiling",
+              "morl_baselines_torch.replay.accrued", "morl_baselines_torch.replay.diverse"}
     assert later <= set(got["names"]), later - set(got["names"])
 
 
@@ -226,3 +229,25 @@ def test_discrete_and_pixel_entry_points_need_cuda_by_default(monkeypatch):
         state = single.init_state()
         assert agent.device.type == "cpu" and state.obs.device.type == "cpu"
         assert state.obs.shape[-1] == (4 * 84 * 84 if cls is Envelope else 8)
+
+
+def test_cli_entry_points_need_cuda_by_default(monkeypatch, tmp_path):
+    """``launch.main`` and ``sweep.main`` without ``--device`` ask for CUDA and,
+    without it, raise before building anything; ``--device cpu`` runs there.
+    ``seed_everything`` asks for CUDA the same way."""
+    from morl_baselines_torch.cli import launch, sweep
+    from morl_baselines_torch.evaluation import seed_everything
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    common = ["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", "0", "-50"]
+    space = '{"learning_rate": {"values": [0.001]}}'
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.main(common)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sweep.main([*common, "--space", space, "--out", str(tmp_path / "s.jsonl")])
+    assert not (tmp_path / "s.jsonl").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        seed_everything(0)
+    tiny = ["num_envs:2", "buffer_size:32", "batch_size:4", "hidden:(8,)", "learning_starts:8"]
+    agent = launch.main([*common, "--num-timesteps", "32", "--device", "cpu", "--init-hyperparams", *tiny])
+    assert agent.device.type == "cpu" and agent.cfg.num_envs == 2

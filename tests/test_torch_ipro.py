@@ -8,8 +8,8 @@ exact (``torch.amin`` splits the subgradient of the min as ``jnp.min``
 does); a whole ``train_iteration`` on deep-sea-treasure with ``lr_frac`` < 1
 exact on the rollout's actions, obs and accrued rewards, 1e-5 on the params;
 ``policy_evaluate`` 1e-5; the n-D IPRO point-set machinery and the IPRO-2D
-box split exact; the float64 volumes of the n-D loop 1e-12 (the JAX
-package's host HV may run the native WFG, which sums in another order).  Then the smoke mirrors of
+box split exact; the float64 volumes of the n-D loop exact (both packages'
+host HV run the native WFG), 1e-12 where the JAX package's library is not built.  Then the smoke mirrors of
 tests/test_agents_multi.py::test_nlmoppo_and_ipro2d and ::test_ipro_nd_end_to_end.
 """
 
@@ -32,6 +32,7 @@ from morl_baselines_tpu.agents.ipro import make_aasf as jmake_aasf
 from morl_baselines_tpu.agents.nlmoppo import NLMOPPO as JNLMOPPO
 from morl_baselines_tpu.agents.nlmoppo import NLMOPPOConfig as JNLMOPPOConfig
 from morl_baselines_tpu.envs import make as jmake
+from morl_baselines_tpu.utils import native as jnative
 
 torch.set_num_threads(1)
 TINY = dict(num_envs=4, num_steps=32, num_minibatches=2, update_epochs=1, hidden=(16, 16))
@@ -188,16 +189,19 @@ def _same_sets(a, b):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
     np.testing.assert_array_equal(np.asarray(a.pf), np.asarray(b.pf))
     assert (a.error, a.replay_triggered) == (b.error, b.replay_triggered)
-    # float64 volumes: the JAX package's host HV runs the native WFG where the library is built,
-    # which sums in another order than the port's Python WFG
+    # float64 volumes: both packages' host HV run the same native WFG, so they are equal where the JAX
+    # package's library is built; without it the JAX package sums in Python, in another order
     for name in ("dominated_hv", "discarded_hv"):
-        np.testing.assert_allclose(getattr(a, name), getattr(b, name), rtol=1e-12, err_msg=name)
+        if jnative.available():
+            assert getattr(a, name) == getattr(b, name), name
+        else:
+            np.testing.assert_allclose(getattr(a, name), getattr(b, name), rtol=1e-12, err_msg=name)
 
 
 def test_ipro_nd_sequence_and_replay_equal():
     """A 3-D sequence of found and failed referents chosen by HVI, then a
     replay: the staircases, front, completed and robust sets, the error and
-    the referent order equal the JAX package's exactly, the volumes to 1e-12."""
+    the referent order equal the JAX package's exactly, the volumes too (1e-12 without the JAX library)."""
     ppo = dict(num_envs=2, num_steps=8, hidden=(8, 8))
     env, jenv = make("deep-sea-treasure-v0"), jmake("deep-sea-treasure-v0")
     env.reward_dim = jenv.reward_dim = 3  # the point-set machinery only reads reward_dim
