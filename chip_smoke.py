@@ -94,7 +94,20 @@ optimizer moment and generator state bitwise, trains on, and scores the
 original and the restored Envelope's fronts (bitwise equal) on the card; the
 ``sweep`` path runs ``cli.sweep.main`` with successive halving over
 ``configs/sweeps/envelope.json`` on deep-sea-treasure (4 trials x 2 seeds,
-2 rungs), each trial's front scored on the card, and checks the JSONL.
+2 rungs, the seeds one after another: ``--no-vmap-seeds``), each trial's
+front scored on the card, and checks the JSONL.  Then slice 10: ``[mujoco]``
+(after ``[envs]``) steps the host-stepped ``mo-hopper-v5`` and
+``mo-halfcheetah-v5`` at 64 envs and ``mo-reacher-v5`` at 16 for 100 vector
+steps from CUDA action tensors where gymnasium and mujoco are installed
+(otherwise it says so and is skipped); the ``sweep_seeds`` path runs
+``[train_segment_seeds]``, Envelope with a seed axis at the main path's
+config (4 seeds x 32768 envs in one stacked state: ms, launches and device
+busy an iteration beside the one-seed iteration, the peak memory, every
+seed's buffer its own, the 4 fronts evaluated as one batch and each scored
+on the card), then ``cli.sweep.main`` with the stacked trial (4 trials x 4
+seeds, 2 rungs, every seed's front scored on the card), then one fixed
+trial stacked against ``--no-vmap-seeds`` in turns (wall times, launches
+an iteration).
 MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
@@ -333,6 +346,13 @@ CKPT_EVAL_STEPS = 200  # the restored and the original Envelope's evaluation, cu
 SWEEP_STEPS = 4_000  # the last rung's budget on deep-sea-treasure (the first rung's is half)
 SWEEP_SPACE = Path(__file__).resolve().parent / "configs" / "sweeps" / "envelope.json"
 
+# slice 10: Envelope with a seed axis at the main path's config, the stacked sweep, the host MuJoCo envs
+SEEDS = 4  # 4 x 32768 = 131,072 envs in one stacked state
+SEEDS_ITERS = 20  # timed stacked iterations after 2 warm-up ones (the one-seed [train_segment] times 20 as well)
+MUJOCO_ENVS = {"mo-hopper-v5": 64, "mo-halfcheetah-v5": 64, "mo-reacher-v5": 16}
+MUJOCO_STEPS = 100
+MUJOCO_EPISODE_STEPS = 40  # episodes cut so that every env resets on the host twice in the window
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -552,7 +572,10 @@ def timed_row(family: str, pts, valid, keep: bool) -> dict:
     )
 
 
-def phase_train_segment(smi: str, cfg: EnvelopeConfig = CONFIG, tag: str = "train_segment") -> None:
+def phase_train_segment(smi: str, cfg: EnvelopeConfig = CONFIG, tag: str = "train_segment") -> dict:
+    """Envelope's one-seed ``train_segment`` at the main path's config: 2
+    warm-up iterations, 20 timed, then 3 profiled; returns {ms, launches, busy_ms}
+    an iteration (launches and busy None when the trace holds no device time)."""
     env = make("minecart-v0")
     agent = Envelope(env, cfg)
     state = agent.init_state()
@@ -580,6 +603,7 @@ def phase_train_segment(smi: str, cfg: EnvelopeConfig = CONFIG, tag: str = "trai
     prof = profile_window(lambda: agent.train_segment(state, 3), f"{tag} 3 iters")
     if prof:
         log(f"[{tag}] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms an iteration")
+    return dict(ms=1e3 * dt / iters, launches=prof and prof["launches"] / 3, busy_ms=prof and prof["busy_ms"] / 3)
 
 
 def profile_window(fn, what: str, cpu: bool = True, top: int = 8) -> dict | None:
@@ -1673,8 +1697,8 @@ def phase_checkpoint(smi: str) -> int:
 
 def phase_sweep(smi: str) -> int:
     """``cli.sweep.main`` with successive halving over ``configs/sweeps/envelope.json``
-    on deep-sea-treasure at the default widths: 4 trials x 2 seeds, 2 rungs;
-    every trial's front scored on the card; the JSONL holds one line per
+    on deep-sea-treasure at the default widths: 4 trials x 2 seeds, 2 rungs,
+    the seeds trained one after another (``--no-vmap-seeds``); every trial's front scored on the card; the JSONL holds one line per
     (trial, rung) whose ``avg_hypervolume`` is the mean of its seeds'."""
     import tempfile
 
@@ -1686,7 +1710,8 @@ def phase_sweep(smi: str) -> int:
             t0 = time.perf_counter()
             sweep.main(["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", *map(str, DST_REF_POINT),
                         "--space-file", str(SWEEP_SPACE), "--halving", "--num-trials", "4", "--num-seeds", "2",
-                        "--rungs", "2", "--num-timesteps", str(SWEEP_STEPS), "--out", str(out), "--device", "cuda"])
+                        "--rungs", "2", "--num-timesteps", str(SWEEP_STEPS), "--out", str(out), "--device", "cuda",
+                        "--no-vmap-seeds"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             recs = [json.loads(line) for line in out.read_text().splitlines()]
@@ -1702,6 +1727,188 @@ def phase_sweep(smi: str) -> int:
     log(f"[sweep] 4 trials x 2 seeds, 2 rungs of {SWEEP_STEPS // 2} and {SWEEP_STEPS} steps in {wall:.2f} s: "
         + "; ".join(f"{r['trial']} {r['avg_hypervolume']:.4g} ({r['wall_s']:.1f} s)" for r in recs) + f" [{smi}]")
     return len(recs)
+
+
+def phase_train_segment_seeds(smi: str, one_seed: dict) -> int:
+    """Envelope with a seed axis at the main path's config: ``SEEDS`` seeds of
+    ``NUM_ENVS`` envs in one stacked state, 2 warm-up iterations, ``SEEDS_ITERS``
+    timed and 3 profiled (launches and device busy an iteration), the peak
+    device memory, and the ratio to ``[train_segment]``'s one-seed iteration
+    of this run.  Checks finite params and losses, and that every seed's
+    buffer holds rows of its own; then evaluates the ``SEEDS`` fronts of 32
+    weights as one batch and scores each on the card."""
+    env = make("minecart-v0")
+    torch.cuda.reset_peak_memory_stats()
+    agent = Envelope(env, CONFIG)
+    state = agent.init_state_seeds(range(SEEDS))
+    state = agent.train_segment(state, 2)  # warm: first learn steps of the stacked shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = agent.train_segment(state, SEEDS_ITERS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SEEDS_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = (2 + SEEDS_ITERS) * NUM_ENVS
+    if state.global_step != steps or state.buffer.size != min(steps, CONFIG.buffer_size):
+        raise AssertionError(f"global_step {state.global_step}, buffer size {state.buffer.size}")
+    if not _params_finite(state.ts.net) or not bool(torch.isfinite(state.loss).all()):
+        raise AssertionError(f"non-finite Q-net params or losses {state.loss.tolist()}")
+    rows = state.buffer.data.obs[:, : state.buffer.size]
+    same = [(a, b) for a in range(SEEDS) for b in range(a + 1, SEEDS) if torch.equal(rows[a], rows[b])]
+    if same:
+        raise AssertionError(f"seeds {same} hold the same buffer rows")
+    ratio = ms / one_seed["ms"]
+    log(f"[train_segment_seeds] minecart {SEEDS} seeds x num_envs={NUM_ENVS} hidden={CONFIG.hidden} gradient_updates="
+        f"{CONFIG.gradient_updates}: {SEEDS_ITERS} iters at {ms:.2f} ms/iter = {SEEDS * NUM_ENVS / (ms / 1e3):.0f} "
+        f"env-steps/s; {ratio:.2f}x the one-seed iteration ({one_seed['ms']:.2f} ms), {SEEDS / ratio:.2f}x less time a seed; "
+        f"losses {[round(float(x), 4) for x in state.loss]}; peak device memory {peak:.2f} GiB [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 3), "train_segment_seeds 3 iters")
+    if prof:
+        log(f"[train_segment_seeds] {prof['launches'] / 3:.0f} launches an iteration (one seed: {one_seed['launches']:.0f}), "
+            f"device busy {prof['busy_ms'] / 3:.2f} ms of {ms:.2f} ms ({100 * prof['busy_ms'] / 3 / ms:.1f}%; one seed: "
+            f"{one_seed['busy_ms']:.2f} ms of {one_seed['ms']:.2f} ms)")
+
+    weights_np = equally_spaced_weights(env.reward_dim, 32)
+    weights = torch.as_tensor(weights_np, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    fronts = agent._eval_front(state.ts.net, weights, 1, env.max_episode_steps).cpu().numpy()
+    eval_s = time.perf_counter() - t0
+    if fronts.shape != (SEEDS, 32, env.reward_dim):
+        raise AssertionError(f"stacked fronts of shape {fronts.shape}")
+    launched = 0
+    for s, front in enumerate(fronts):
+        host = multi_policy_metrics(front, REF_POINT, weights_np)
+        log(f"[train_segment_seeds] seed {s}: " + ", ".join(f"{k}={v:.6g}" for k, v in host.items()))
+        launched += score_on_card(front, host, REF_POINT)
+    log(f"[train_segment_seeds] {SEEDS} fronts of 32 weights x {env.max_episode_steps} steps evaluated as one batch of "
+        f"{SEEDS * 32} episodes in {eval_s:.2f} s, each scored on the card")
+    del agent, state
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_sweep_seeds(smi: str) -> int:
+    """``cli.sweep.main`` with successive halving over ``configs/sweeps/envelope.json``
+    on deep-sea-treasure with the stacked trial (the default): 4 trials x
+    ``SEEDS`` seeds, 2 rungs; every seed's front scored on the card; the JSONL
+    checked as ``phase_sweep`` checks it."""
+    import tempfile
+
+    scored = []
+
+    class SeedScoredEnvelope(ScoredEnvelope):
+        """Envelope whose stacked evaluation also scores every seed's front on the card."""
+
+        def _eval_front(self, net, weights, rep, max_steps, gen=None):
+            fronts = super()._eval_front(net, weights, rep, max_steps, gen)
+            if net.members is not None:
+                w = weights.cpu().numpy()
+                for front in fronts.cpu().numpy():
+                    scored.append(score_on_card(front, multi_policy_metrics(front, DST_REF_POINT, w), DST_REF_POINT))
+            return fronts
+
+    before = experiments.ALGOS["envelope"]
+    experiments.ALGOS["envelope"] = SeedScoredEnvelope
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "sweep.jsonl"
+            t0 = time.perf_counter()
+            sweep.main(["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", *map(str, DST_REF_POINT),
+                        "--space-file", str(SWEEP_SPACE), "--halving", "--num-trials", "4", "--num-seeds", str(SEEDS),
+                        "--rungs", "2", "--num-timesteps", str(SWEEP_STEPS), "--out", str(out), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            recs = [json.loads(line) for line in out.read_text().splitlines()]
+    finally:
+        experiments.ALGOS["envelope"] = before
+    trials = [r["trial"] for r in recs]
+    if len(recs) != 6 or sorted(t for t in trials if t.endswith("-r0")) != [f"t{i}-r0" for i in range(4)]:
+        raise AssertionError(f"the sweep wrote {trials}")
+    for r in recs:
+        hvs = r["seed_hypervolumes"]
+        if len(hvs) != SEEDS or not all(math.isfinite(h) for h in hvs) or r["avg_hypervolume"] != float(np.mean(hvs)):
+            raise AssertionError(f"bad sweep record {r}")
+    if len(scored) != 6 * SEEDS:
+        raise AssertionError(f"{len(scored)} fronts scored on the card, {6 * SEEDS} expected")
+    log(f"[sweep_seeds] 4 trials x {SEEDS} seeds stacked, 2 rungs of {SWEEP_STEPS // 2} and {SWEEP_STEPS} steps in "
+        f"{wall:.2f} s, {len(scored)} fronts scored on the card: "
+        + "; ".join(f"{r['trial']} {r['avg_hypervolume']:.4g} ({r['wall_s']:.1f} s)" for r in recs) + f" [{smi}]")
+    return len(recs)
+
+
+def phase_trial_both_ways(smi: str) -> dict:
+    """One fixed trial (Envelope's defaults on deep-sea-treasure, ``SEEDS``
+    seeds, ``SWEEP_STEPS`` steps) through ``sweep.run_trial`` stacked and with
+    the seeds one after another, in turns (stacked, sequential, sequential,
+    stacked); then the launches of a stacked iteration of the ``SEEDS`` seeds
+    and of a one-seed iteration, each from 3 profiled iterations past
+    ``learning_starts``."""
+    walls = {"stacked": [], "sequential": []}
+    for mode in ("stacked", "sequential", "sequential", "stacked"):
+        t0 = time.perf_counter()
+        _, scores = sweep.run_trial("envelope", "deep-sea-treasure-v0", DST_REF_POINT, {}, SEEDS, SWEEP_STEPS,
+                                    device="cuda", vmap_seeds=mode == "stacked")
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        if len(scores) != SEEDS or not all(math.isfinite(h) for h in scores):
+            raise AssertionError(f"{mode} trial scored {scores}")
+    agent = Envelope(make("deep-sea-treasure-v0"), EnvelopeConfig())
+    warm = agent.cfg.learning_starts // agent.cfg.num_envs + 2
+    launches = {}
+    for mode, state in (("stacked", agent.init_state_seeds(range(SEEDS))), ("one seed", agent.init_state(0))):
+        agent.train_segment(state, warm)
+        prof = profile_window(lambda: agent.train_segment(state, 3), f"deep-sea-treasure {mode} 3 iters", top=0)
+        launches[mode] = prof and prof["launches"] / 3
+    res = dict(seeds=SEEDS, steps=SWEEP_STEPS, stacked_s=walls["stacked"], sequential_s=walls["sequential"],
+               launches_stacked=launches["stacked"], launches_one_seed=launches["one seed"])
+    log(f"[sweep_seeds] one trial of {SEEDS} seeds x {SWEEP_STEPS} steps (Envelope defaults, deep-sea-treasure): stacked "
+        f"{', '.join(f'{x:.2f}' for x in walls['stacked'])} s, sequential {', '.join(f'{x:.2f}' for x in walls['sequential'])} s; "
+        f"launches an iteration: stacked {launches['stacked']} for {SEEDS} seeds, one seed {launches['one seed']} [{smi}]")
+    return res
+
+
+def phase_mujoco(smi: str) -> dict:
+    """The host-stepped MuJoCo envs through ``VectorMOEnv``'s hooks: ``MUJOCO_STEPS``
+    vector steps from CUDA action tensors, episodes cut to
+    ``MUJOCO_EPISODE_STEPS`` steps so that the host autoreset fires; ms a step,
+    shapes, finiteness, and every finished env reset (t = 0, a new obs).  Runs
+    only where gymnasium and mujoco are installed."""
+    import importlib.util
+
+    if any(importlib.util.find_spec(m) is None for m in ("gymnasium", "mujoco")):
+        log("[mujoco] not run: gymnasium/mujoco not installed on this host")
+        return {}
+    out = {}
+    for env_id, n in MUJOCO_ENVS.items():
+        env = make(env_id, max_episode_steps=MUJOCO_EPISODE_STEPS)
+        venv = VectorMOEnv(env, n)
+        gen = torch.Generator("cuda").manual_seed(0)
+        state, obs = venv.reset(gen)
+        if obs.shape != (n, env.obs_dim) or obs.device.type != "cuda":
+            raise AssertionError(f"{env_id}: reset obs {tuple(obs.shape)} on {obs.device}")
+        ok = torch.ones((), dtype=torch.bool, device="cuda")
+        resets = torch.zeros((), dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MUJOCO_STEPS):
+            o = venv.step(state, env.action_space.sample(gen, n), gen)
+            state = o.state
+            done = o.terminated | o.truncated
+            ok &= torch.isfinite(o.obs).all() & torch.isfinite(o.reward).all() & torch.isfinite(o.final_obs).all()
+            ok &= ((state.t == 0) & (o.obs != o.final_obs).any(dim=1) | ~done).all()
+            resets += done.sum()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / MUJOCO_STEPS
+        if o.obs.shape != (n, env.obs_dim) or o.reward.shape != (n, env.reward_dim) or o.obs.device.type != "cuda":
+            raise AssertionError(f"{env_id}: step obs {tuple(o.obs.shape)}, reward {tuple(o.reward.shape)}")
+        if not bool(ok) or int(resets) < 2 * n or len(env._pool.envs) != n:
+            raise AssertionError(f"{env_id}: non-finite values or a failed autoreset ({int(resets)} resets of {n} envs, "
+                                 f"pool of {len(env._pool.envs)})")
+        env.close()
+        out[env_id] = dict(envs=n, ms=ms, resets=int(resets))
+        log(f"[mujoco] {env_id} x {n}: {ms:.3f} ms a vector step ({n / (ms / 1e3):.0f} env-steps/s), {int(resets)} host "
+            f"autoresets in {MUJOCO_STEPS} steps [{smi}]")
+    return out
 
 
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
@@ -1753,11 +1960,13 @@ def main() -> int:
     archive = phase_archive_add(smi)
     planar = phase_planar(smi)
     envs = phase_envs(smi)
+    mujoco = phase_mujoco(smi)
     host_hv = phase_native(smi)
+    timings = {}
 
     # each path's launches, counted from 0 just before it and read just after
     paths = {
-        "envelope": lambda: (phase_train_segment(smi), phase_train_and_score()),
+        "envelope": lambda: (timings.update(one_seed=phase_train_segment(smi)), phase_train_and_score()),
         "gpils": lambda: (phase_gpils_segment(smi), phase_gpils_train(smi)),
         "gpipd": lambda: phase_gpipd_train(smi),
         "gpils_cont": lambda: (phase_gpils_cont_segment(smi), phase_gpils_cont_train(smi)),
@@ -1781,6 +1990,11 @@ def main() -> int:
         "launch": lambda: (phase_train_segment(smi, BF16_CONFIG, "train_segment_bf16"), phase_launch(smi)),
         "checkpoint": lambda: phase_checkpoint(smi),
         "sweep": lambda: phase_sweep(smi),
+        "sweep_seeds": lambda: (
+            phase_train_segment_seeds(smi, timings["one_seed"]),
+            phase_sweep_seeds(smi),
+            timings.update(trial=phase_trial_both_ways(smi)),
+        ),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}
@@ -1815,6 +2029,8 @@ def main() -> int:
     log(f"[planar] {json.dumps(planar)}")
     log(f"[envs] {json.dumps(envs)}")
     log(f"[native] {json.dumps(host_hv)}")
+    log(f"[mujoco] {json.dumps(mujoco)}")
+    log(f"[sweep_seeds] {json.dumps(timings)}")
     log(smi)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

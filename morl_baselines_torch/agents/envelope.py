@@ -28,10 +28,20 @@ and Q-values stay float32.
 The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
 optax's clip (``clip_grad_global_norm_``), then ``torch.optim.Adam`` with
 optax's betas and eps.
+
+A seed axis (``init_state_seeds``, the JAX package's ``jax.vmap`` over
+``init_state``/``train_segment``/``_eval_front`` in the sweep's stacked
+trial): S seeds train as one ``EnvelopeSeedsState`` whose Q-net, target,
+optimizer (``MemberAdam`` after a clip per seed), replay and S·N envs carry
+the seed axis first, so the S seeds share one stream of launches.  Member s
+starts from the one-seed init of ``seeds[s]``.  The learn gate, the
+schedules and the target sync are shared, as ``global_step`` is equal for
+every seed; one generator serves all seeds.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass
 
@@ -42,9 +52,17 @@ from ..core.weights import equally_spaced_weights, random_weights
 from ..envs.base import MOEnv
 from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import evaluate_front, multi_policy_metrics
-from ..models.networks import EnvelopeQNet, TrainState, clip_grad_global_norm_, polyak_update
-from ..replay.buffer import ReplayBuffer, Transition
-from ..replay.prioritized import PrioritizedReplayBuffer
+from ..models.networks import (
+    EnvelopeQNet,
+    MemberAdam,
+    TrainState,
+    clip_grad_global_norm_,
+    clip_grad_global_norm_members_,
+    polyak_update,
+    stack_members,
+)
+from ..replay.buffer import MemberReplayBuffer, ReplayBuffer, Transition
+from ..replay.prioritized import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer
 from ..utils.schedules import linearly_decaying_value
 from .base import MOAgentBase
 
@@ -92,6 +110,27 @@ class EnvelopeState:
     loss: torch.Tensor  # last update's loss (NaN before the first)
 
 
+@dataclass
+class EnvelopeSeedsState:
+    """S seeds of ``EnvelopeState`` on a leading seed axis."""
+
+    ts: TrainState  # EnvelopeQNet(members=S), its target copy, MemberAdam
+    buffer: MemberReplayBuffer | MemberPrioritizedReplayBuffer
+    venv: VectorMOEnv  # S·N envs, seed-major
+    env_state: tuple
+    obs: torch.Tensor  # (S, N, obs_dim)
+    weights: torch.Tensor  # (S, N, d)
+    stats: EpisodeStats  # S·N rows
+    gen: torch.Generator  # shared by every seed
+    global_step: int  # env steps of each seed
+    iter_count: int
+    loss: torch.Tensor  # (S,) each seed's last loss (NaN before the first)
+
+    @property
+    def members(self) -> int:
+        return self.obs.shape[0]
+
+
 class Envelope(MOAgentBase):
     def __init__(self, env: MOEnv, config: EnvelopeConfig = EnvelopeConfig(), log: bool = False, device="cuda"):
         super().__init__(env, config, log=log, device=device)
@@ -135,6 +174,39 @@ class Envelope(MOAgentBase):
             global_step=0,
             iter_count=0,
             loss=torch.full((), float("nan"), device=self.device),
+        )
+
+    def init_state_seeds(self, seeds) -> EnvelopeSeedsState:
+        """One state of ``len(seeds)`` seeds on a leading axis; member s's
+        Q-net equals ``init_state(seeds[s])``'s.  The envs, episode weights
+        and batches draw from one generator seeded ``seeds[0]``.  Flat
+        observations only: with ``image_shape`` it raises ``NotImplementedError``."""
+        cfg = self.cfg
+        seeds = [int(x) for x in seeds]
+        S, n, dev = len(seeds), cfg.num_envs, self.device
+        # EnvelopeQNet raises for an image_shape: the NatureCNN trunk has no member axis yet
+        make = lambda members, gen: EnvelopeQNet(  # noqa: E731
+            self.obs_dim, self.env.num_actions, self.reward_dim, cfg.hidden, gen, cfg.image_shape, members=members
+        )
+        net = stack_members(make, seeds).to(dev)
+        target = copy.deepcopy(net).requires_grad_(False)
+        gen = torch.Generator(dev).manual_seed(seeds[0])
+        buf_cls = MemberPrioritizedReplayBuffer if cfg.per else MemberReplayBuffer
+        buffer = buf_cls.create(S, cfg.buffer_size, obs_dim=self.obs_dim, reward_dim=self.reward_dim, device=dev)
+        venv = VectorMOEnv(self.env, S * n)
+        env_state, obs = venv.reset(gen)
+        return EnvelopeSeedsState(
+            ts=TrainState(net=net, target_net=target, optimizer=MemberAdam(net.parameters(), lr=cfg.learning_rate)),
+            buffer=buffer,
+            venv=venv,
+            env_state=env_state,
+            obs=obs.reshape(S, n, -1),
+            weights=random_weights(gen, self.reward_dim, n=S * n, dist="gaussian").reshape(S, n, -1),
+            stats=EpisodeStats.create(S * n, self.reward_dim, dev),
+            gen=gen,
+            global_step=0,
+            iter_count=0,
+            loss=torch.full((S,), float("nan"), device=dev),
         )
 
     # ------------------------------------------------------------ update math
@@ -196,6 +268,51 @@ class Envelope(MOAgentBase):
         ts.optimizer.step()
         return loss.detach(), td_scal[: batch.obs.shape[0]].detach()
 
+    @torch.no_grad()
+    def _envelope_target_seeds(self, ts: TrainState, next_obs, w, sampled_w) -> torch.Tensor:
+        """``_envelope_target`` of each seed at once: next_obs (S, B, O), w
+        (S, B, d), sampled_w (S, W, d) -> (S, B, d)."""
+        s, b, n_w, d = next_obs.shape[0], next_obs.shape[1], sampled_w.shape[1], self.reward_dim
+        no = next_obs.repeat_interleave(n_w, dim=1)  # (S, B*W, O)
+        ws = sampled_w.repeat(1, b, 1)  # (S, B*W, d)
+        q_online = ts.net(no, ws, self.dtype).reshape(s, b, n_w, -1, d)
+        scal = torch.einsum("sbd,sbwad->sbwa", w, q_online)
+        best_a = torch.argmax(scal, dim=3)  # (S, B, W)
+        best_w = torch.argmax(torch.max(scal, dim=3).values, dim=2)  # (S, B)
+        q_target = ts.target_net(no, ws, self.dtype).reshape(s, b, n_w, -1, d)
+        q_at_a = torch.gather(q_target, 3, best_a[..., None, None].expand(s, b, n_w, 1, d)).squeeze(3)
+        return torch.gather(q_at_a, 2, best_w[..., None, None].expand(s, b, 1, d)).squeeze(2)
+
+    def _update_seeds(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
+        """``_update`` of each seed at once, in place: batch rows (S, B, ...),
+        sampled_w (S, W, d).  Each seed's loss is its one-seed loss, its
+        gradient is clipped by its own global norm and its Adam keeps its own
+        step count.  Returns (loss (S,), td_scal[:, :B] (S, B))."""
+        cfg = self.cfg
+        n_w, b = sampled_w.shape[1], batch.obs.shape[1]
+        w = sampled_w.repeat_interleave(b, dim=1)  # (S, W*B, d)
+        obs = batch.obs.repeat(1, n_w, 1)
+        actions = batch.action.repeat(1, n_w)
+        rewards = batch.reward.repeat(1, n_w, 1)
+        next_obs = batch.next_obs.repeat(1, n_w, 1)
+        dones = batch.terminated.repeat(1, n_w)
+
+        target_next = self._envelope_target_seeds(ts, next_obs, w, sampled_w)
+        y = rewards + (1.0 - dones[..., None]) * cfg.gamma * target_next
+
+        q = ts.net(obs, w, self.dtype)  # (S, W*B, A, d)
+        q_sa = torch.gather(q, 2, actions.long()[..., None, None].expand(-1, -1, 1, self.reward_dim)).squeeze(2)
+        l_mo = torch.mean((q_sa - y) ** 2, dim=(1, 2))
+        wq = torch.sum(q_sa * w, dim=-1)
+        wy = torch.sum(y * w, dim=-1)
+        l_scal = torch.mean((wq - wy) ** 2, dim=1)
+        loss = (1.0 - homotopy_lambda) * l_mo + homotopy_lambda * l_scal
+        ts.optimizer.zero_grad()
+        loss.sum().backward()  # the seeds share no params: each gets its own loss's gradient
+        clip_grad_global_norm_members_(list(ts.net.parameters()), cfg.max_grad_norm)
+        ts.optimizer.step()
+        return loss.detach(), (wq - wy)[:, :b].detach()
+
     # ---------------------------------------------------------- train segment
 
     def _epsilon(self, global_step: int) -> float:
@@ -229,8 +346,10 @@ class Envelope(MOAgentBase):
         q = net(obs, weights, self.dtype)  # (N, A, d)
         return torch.argmax(torch.einsum("nd,nad->na", weights, q), dim=-1)
 
-    def train_segment(self, state: EnvelopeState, num_iters: int) -> EnvelopeState:
+    def train_segment(self, state: EnvelopeState | EnvelopeSeedsState, num_iters: int):
         """Run ``num_iters`` actor-learner iterations, updating ``state`` in place."""
+        if isinstance(state, EnvelopeSeedsState):
+            return self._train_segment_seeds(state, num_iters)
         cfg = self.cfg
         n, gen, dev = cfg.num_envs, state.gen, self.device
         ts, buffer = state.ts, state.buffer
@@ -284,6 +403,62 @@ class Envelope(MOAgentBase):
                 polyak_update(ts.net, ts.target_net, 1.0)
         return state
 
+    @torch.no_grad()
+    def _greedy_actions_seeds(self, net: EnvelopeQNet, obs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        q = net(obs, weights, self.dtype)  # (S, M, A, d)
+        return torch.argmax(torch.einsum("smd,smad->sma", weights, q), dim=-1)
+
+    def _train_segment_seeds(self, state: EnvelopeSeedsState, num_iters: int) -> EnvelopeSeedsState:
+        """``train_segment`` of every seed at once: the iteration of the
+        one-seed loop with (S, ...) tensors, drawing in the same order."""
+        cfg = self.cfg
+        S, n, d, gen, dev = state.members, cfg.num_envs, self.reward_dim, state.gen, self.device
+        ts, buffer, venv = state.ts, state.buffer, state.venv
+        for _ in range(num_iters):
+            eps = self._epsilon(state.global_step)
+            greedy = self._greedy_actions_seeds(ts.net, state.obs, state.weights)
+            rand_a = torch.randint(0, self.env.num_actions, (S, n), generator=gen, device=dev)
+            explore = torch.rand((S, n), generator=gen, device=dev) < eps
+            actions = torch.where(explore, rand_a, greedy)
+
+            out = venv.step(state.env_state, actions.reshape(S * n), gen)
+            done = out.terminated | out.truncated
+            state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
+
+            buffer.add_batch(
+                Transition(
+                    obs=state.obs,
+                    action=actions,
+                    reward=out.reward.reshape(S, n, d),
+                    next_obs=out.final_obs.reshape(S, n, -1),
+                    terminated=out.terminated.to(torch.float32).reshape(S, n),
+                )
+            )
+
+            new_w = random_weights(gen, d, n=S * n, dist="gaussian").reshape(S, n, d)
+            state.weights = torch.where(done.reshape(S, n, 1), new_w, state.weights)
+            state.env_state, state.obs = out.state, out.obs.reshape(S, n, -1)
+            state.global_step += n
+            state.iter_count += 1
+
+            if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
+                lam = self._homotopy_lambda(state.global_step)
+                for _ in range(cfg.gradient_updates):
+                    if cfg.per:
+                        batch, idx, _probs = buffer.sample(gen, cfg.batch_size)
+                    else:
+                        batch = buffer.sample(gen, cfg.batch_size)
+                    sampled_w = random_weights(gen, d, n=S * cfg.num_sample_w, dist="gaussian").reshape(S, -1, d)
+                    state.loss, td = self._update_seeds(ts, batch, sampled_w, lam)
+                    if cfg.per:
+                        buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
+
+            if cfg.tau < 1.0:
+                polyak_update(ts.net, ts.target_net, cfg.tau)
+            elif state.iter_count % cfg.target_net_update_freq == 0:
+                polyak_update(ts.net, ts.target_net, 1.0)
+        return state
+
     # ------------------------------------------------------------------ eval
 
     @torch.no_grad()
@@ -292,9 +467,20 @@ class Envelope(MOAgentBase):
         return self._greedy_actions(net, obs, w)
 
     def _eval_front(self, net: EnvelopeQNet, weights: torch.Tensor, rep: int, max_steps: int, gen=None) -> torch.Tensor:
+        """(K, d) discounted returns of the greedy policy at each of the K
+        ``weights``; for a Q-net with S members, (S, K, d): the S fronts'
+        S·K·rep episodes run as one batch, each member acting on its own rows."""
         gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
-        act = lambda obs, w, g: self.act_eval(net, obs, w)
-        return evaluate_front(self.env, act, weights, gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
+        if net.members is None:
+            act = lambda obs, w, g: self.act_eval(net, obs, w)
+            return evaluate_front(self.env, act, weights, gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
+        S = net.members
+
+        def act(obs, w, g):
+            return self._greedy_actions_seeds(net, obs.reshape(S, -1, obs.shape[-1]), w.reshape(S, -1, w.shape[-1])).reshape(-1)
+
+        front = evaluate_front(self.env, act, weights.repeat(S, 1), gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
+        return front.reshape(S, weights.shape[0], -1)
 
     # ----------------------------------------------------------------- train
 

@@ -4,9 +4,14 @@ PyTorch port of ``morl_baselines_tpu/cli/sweep.py`` (reference
 experiments/hyperparameter_search/launch_sweep.py:34-188, which runs wandb
 bayes sweeps maximizing ``avg_hypervolume`` over N seeds).  The objective is
 the same: the mean over seeds of each run's last ``eval/hypervolume``
-(0.0 for an agent that logs none).  The seeds of a trial train one after
-another, the JAX package's ``--no-vmap-seeds`` path; its seed-stacked trial
-(``run_trial_vmapped``) is not ported yet.
+(0.0 for an agent that logs none).  An Envelope trial with flat
+observations trains its seeds as one seed-stacked state
+(``run_trial_vmapped``: one stream of launches for all seeds, where the JAX
+package vmaps over seeds); every other trial, and any trial under
+``--no-vmap-seeds``, trains its seeds one after another.  The dispatch is
+by that rule, never by catching a failure: a stacked trial that fails
+raises (the JAX package falls back to sequential seeds on any exception,
+which makes its CAPQL trials sequential).
 
 Scheduling: plain random search (default), successive halving
 (``--halving``: sample N configs, train all at budget/eta^(rungs-1),
@@ -40,7 +45,12 @@ import json
 import time
 
 import numpy as np
+import torch
 
+from ..agents.envelope import Envelope
+from ..core.indicators import hypervolume
+from ..core.pareto import get_non_dominated_inds
+from ..core.weights import equally_spaced_weights
 from ..utils.device import resolve_device
 from .experiments import ALGOS, make_env
 
@@ -157,9 +167,43 @@ def _build_agent(algo: str, env_id: str, ref_point, overrides: dict, seed: int, 
     return algo_cls(env, **kwargs), env
 
 
+def run_trial_vmapped(algo: str, env_id: str, ref_point, overrides: dict, num_seeds: int, num_timesteps: int,
+                      device="cuda"):
+    """All seeds of an Envelope trial trained as one seed-stacked state.
+
+    Seeds ``range(num_seeds)``: stacked member s starts where the sequential
+    trial's seed s starts.  ``num_timesteps // num_envs`` iterations, then
+    the S fronts (32 equally spaced weights, one episode each, up to the
+    env's episode length or 500 steps) evaluated as one batch, each filtered
+    to its non-dominated points and scored by the host ``hypervolume``.
+    Returns (mean_hv, per-seed hvs) like ``run_trial``.
+    """
+    agent, env = _build_agent(algo, env_id, ref_point, overrides, 0, device)
+    cfg = agent.cfg
+    state = agent.init_state_seeds(range(num_seeds))
+    state = agent.train_segment(state, max(1, num_timesteps // cfg.num_envs))
+    eval_weights = torch.as_tensor(equally_spaced_weights(env.reward_dim, 32), dtype=torch.float32, device=agent.device)
+    fronts = agent._eval_front(state.ts.net, eval_weights, 1, env.max_episode_steps or 500).cpu().numpy()
+    scores = [float(hypervolume(front[get_non_dominated_inds(front)], np.asarray(ref_point))) for front in fronts]
+    return float(np.mean(scores)), scores
+
+
+def stacks_seeds(algo: str, overrides: dict) -> bool:
+    """Whether a trial trains its seeds stacked: Envelope with flat observations
+    (a NatureCNN trunk has no seed axis yet)."""
+    algo_cls = ALGOS[algo]
+    if not issubclass(algo_cls, Envelope):
+        return False
+    default_cfg = inspect.signature(algo_cls.__init__).parameters["config"].default
+    return _apply_overrides(default_cfg, overrides).image_shape is None
+
+
 def run_trial(algo: str, env_id: str, ref_point, overrides: dict, num_seeds: int, num_timesteps: int,
-              train_kwargs=None, device="cuda"):
-    """Mean final hypervolume over seeds (the sweep objective, reference :100-141)."""
+              train_kwargs=None, device="cuda", vmap_seeds: bool = True):
+    """Mean final hypervolume over seeds (the sweep objective, reference :100-141).
+    ``vmap_seeds`` stacks the seeds where ``stacks_seeds`` allows it."""
+    if vmap_seeds and stacks_seeds(algo, overrides):
+        return run_trial_vmapped(algo, env_id, ref_point, overrides, num_seeds, num_timesteps, device=device)
     scores = []
     for seed in range(num_seeds):
         agent, env = _build_agent(algo, env_id, ref_point, overrides, seed, device)
@@ -186,6 +230,7 @@ def main(argv=None):
     parser.add_argument("--num-timesteps", type=int, default=50_000)
     parser.add_argument("--out", type=str, default="sweep_results.jsonl")
     parser.add_argument("--sweep-seed", type=int, default=0)
+    parser.add_argument("--no-vmap-seeds", action="store_true", help="force sequential per-seed training")
     parser.add_argument("--halving", action="store_true", help="successive-halving schedule")
     parser.add_argument("--eta", type=int, default=2, help="halving promotion factor")
     parser.add_argument("--rungs", type=int, default=3, help="halving rungs")
@@ -208,7 +253,8 @@ def main(argv=None):
     def evaluate(trial_id, overrides, budget, f):
         t0 = time.time()
         score, scores = run_trial(
-            args.algo, args.env_id, args.ref_point, overrides, args.num_seeds, budget, device=device
+            args.algo, args.env_id, args.ref_point, overrides, args.num_seeds, budget, device=device,
+            vmap_seeds=not args.no_vmap_seeds,
         )
         rec = {
             "trial": trial_id,

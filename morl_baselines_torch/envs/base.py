@@ -56,6 +56,12 @@ class ArrayBox:
     low: float
     high: float
     shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.uint8
+
+    def sample(self, gen: torch.Generator, n: int) -> torch.Tensor:
+        """n uniform draws in [low, high), cast to ``dtype`` (truncation, as the JAX ``astype``)."""
+        u = torch.rand((n, *self.shape), generator=gen, device=gen.device)
+        return (self.low + u * (self.high - self.low)).to(self.dtype)
 
 
 class StepOut(NamedTuple):

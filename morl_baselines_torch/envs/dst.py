@@ -109,3 +109,20 @@ class DeepSeaTreasure(MOEnv):
             disc_time = -sum(gamma**k for k in range(t))
             pts.append([disc_treasure, disc_time])
         return filter_pareto_dominated(np.asarray(pts, dtype=np.float64))
+
+    def render_frame(self, state: DSTState, cell: int = 24) -> np.ndarray:
+        """(H, W, 3) uint8 image of the grid and the submarine of a one-env
+        ``state`` (host numpy, visualization only)."""
+        row, col = int(state.row.reshape(())), int(state.col.reshape(()))
+        img = np.zeros((_N_ROWS * cell, _N_COLS * cell, 3), dtype=np.uint8)
+        for r in range(_N_ROWS):
+            for c in range(_N_COLS):
+                if r > _DEPTHS[c]:
+                    color = (60, 50, 40)  # seabed
+                elif r == _DEPTHS[c]:
+                    color = (230, 200, 60)  # treasure
+                else:
+                    color = (30, 90, 180)  # sea
+                img[r * cell : (r + 1) * cell, c * cell : (c + 1) * cell] = color
+        img[row * cell + 4 : (row + 1) * cell - 4, col * cell + 4 : (col + 1) * cell - 4] = (220, 50, 50)
+        return img

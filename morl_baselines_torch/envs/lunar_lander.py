@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .base import Box, Discrete, MOEnv, StepOut
@@ -219,6 +220,9 @@ class _LunarLanderBase(MOEnv):
         )
         return StepOut(state, obs, reward, terminated, state.t >= self.max_episode_steps)
 
+    def render_frame(self, state: LLState, width: int = 400, height: int = 267) -> np.ndarray:
+        return _render_lander(state, width, height)
+
 
 class MOLunarLander(_LunarLanderBase):
     """Discrete actions: 0 noop, 1 left engine, 2 main, 3 right."""
@@ -270,3 +274,35 @@ def lander_heuristic(obs: torch.Tensor) -> torch.Tensor:
     hover_todo = torch.where(contact, -vy * 0.5, hover_todo)
     side = torch.where(ang_todo < -0.05, 3, torch.where(ang_todo > 0.05, 1, 0))
     return torch.where((hover_todo > torch.abs(ang_todo)) & (hover_todo > 0.05), 2, side).long()
+
+
+def _render_lander(state: LLState, width: int = 400, height: int = 267) -> np.ndarray:
+    """(H, W, 3) uint8 frame of a one-env ``state`` (host numpy, visualization only)."""
+    img = np.zeros((height, width, 3), dtype=np.uint8)
+    img[:] = (10, 10, 30)  # sky
+    sx, sy = width / W, height / H
+
+    def to_px(wx, wy):
+        return int(wx * sx), int(height - 1 - wy * sy)
+
+    gy = to_px(0.0, HELIPAD_Y)[1]
+    img[gy:, :] = (120, 110, 100)  # terrain
+    x, y = float(state.x.reshape(())), float(state.y.reshape(()))
+    ang = float(state.angle.reshape(()))
+    c, s = np.cos(ang), np.sin(ang)
+    # lander body quad + leg tips in world coords
+    body = [(-0.55, 0.55), (0.55, 0.55), (0.55, BODY_BOTTOM), (-0.55, BODY_BOTTOM)]
+    pts = [(x + c * bx - s * by, y + s * bx + c * by) for bx, by in body]
+    xs = [to_px(px, py)[0] for px, py in pts]
+    ys = [to_px(px, py)[1] for px, py in pts]
+    x0, x1 = max(0, min(xs)), min(width - 1, max(xs))
+    y0, y1 = max(0, min(ys)), min(height - 1, max(ys))
+    if x0 <= x1 and y0 <= y1:
+        img[y0 : y1 + 1, x0 : x1 + 1] = (200, 200, 220)
+    for lsx in (-1.0, 1.0):
+        lx = x + c * lsx * LEG_TIP_X - s * LEG_TIP_Y
+        ly = y + s * lsx * LEG_TIP_X + c * LEG_TIP_Y
+        px, py = to_px(lx, ly)
+        if 0 <= px < width - 2 and 0 <= py < height - 2:
+            img[py : py + 3, px : px + 3] = (220, 120, 40)
+    return img

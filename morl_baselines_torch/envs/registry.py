@@ -1,9 +1,9 @@
 """Env registry — name -> constructor, mirroring MO-Gymnasium ids.
 
 PyTorch port of ``morl_baselines_tpu/envs/registry.py``: every id of the
-JAX registry but the host-stepped MuJoCo ones (``mo-hopper-v5``,
-``mo-halfcheetah-v5``, their v4 aliases and ``mo-reacher-*``), which raise
-``KeyError`` as any unknown id does.
+JAX registry.  The host-stepped MuJoCo ids (``mo-hopper-v5``,
+``mo-halfcheetah-v5``, their v4 aliases and ``mo-reacher-v4/v5``) import
+gymnasium and mujoco only when such an env is made.
 """
 
 from __future__ import annotations
@@ -26,6 +26,17 @@ from .resource_gathering import ResourceGathering
 from .water_reservoir import WaterReservoir
 from .wrappers import wrap_pixel_stack
 
+
+def _mujoco_env(maker: str):
+    def build(**kw):
+        from . import mujoco
+
+        return {"hopper": mujoco.make_mo_hopper, "halfcheetah": mujoco.make_mo_halfcheetah,
+                "reacher": mujoco.make_mo_reacher}[maker](**kw)
+
+    return build
+
+
 ENV_REGISTRY: Dict[str, Callable[..., MOEnv]] = {
     "deep-sea-treasure-v0": lambda **kw: DeepSeaTreasure(dst_map="convex", **kw),
     "deep-sea-treasure-concave-v0": lambda **kw: DeepSeaTreasure(dst_map="concave", **kw),
@@ -41,6 +52,14 @@ ENV_REGISTRY: Dict[str, Callable[..., MOEnv]] = {
     "mo-lunar-lander-continuous-v3": MOLunarLanderContinuous,
     "minecart-v0": lambda **kw: Minecart(deterministic=False, **kw),
     "minecart-deterministic-v0": lambda **kw: Minecart(deterministic=True, **kw),
+    # host-stepped MuJoCo (gymnasium's physics in a host pool)
+    "mo-hopper-v5": _mujoco_env("hopper"),
+    "mo-halfcheetah-v5": _mujoco_env("halfcheetah"),
+    # v4 aliases (the reference's examples use both generations)
+    "mo-hopper-v4": _mujoco_env("hopper"),
+    "mo-halfcheetah-v4": _mujoco_env("halfcheetah"),
+    "mo-reacher-v4": _mujoco_env("reacher"),
+    "mo-reacher-v5": _mujoco_env("reacher"),
     # pixel-observation DST, alone and under the reference's mario CNN wrapper stack
     "deep-sea-treasure-pixel-v0": PixelDST,
     "deep-sea-treasure-pixel-stack-v0": lambda **kw: wrap_pixel_stack(PixelDST(**kw)),

@@ -8,6 +8,10 @@ autoreset is a ``torch.where`` select.
 Autoreset semantics: *same-step* — when an episode ends, the returned obs is
 already the reset obs, and the pre-reset final obs is returned separately so
 TD targets can bootstrap correctly (``final_obs`` + ``terminated``).
+
+An env that steps on the host (the MuJoCo adapter) provides
+``vector_reset``/``vector_step``, which reset and step the whole batch in one
+host call with the autoreset done there; ``VectorMOEnv`` calls them instead.
 """
 
 from __future__ import annotations
@@ -37,9 +41,13 @@ class VectorMOEnv:
         self.reward_dim = env.reward_dim
 
     def reset(self, gen: torch.Generator):
+        if hasattr(self.env, "vector_reset"):
+            return self.env.vector_reset(gen, self.num_envs)
         return self.env.reset(self.num_envs, gen)
 
     def step(self, state, actions: torch.Tensor, gen: torch.Generator) -> VecStepOut:
+        if hasattr(self.env, "vector_step"):
+            return self.env.vector_step(state, actions, gen)
         n = self.num_envs
         out = self.env.step(state, actions, self.env.sample_noise(n, gen))
         done = out.terminated | out.truncated

@@ -1,0 +1,31 @@
+"""GPI-LS on deep-sea-treasure (counterpart of reference examples/gpi_ls_dst.py)."""
+
+import numpy as np
+
+from morl_baselines_torch.agents import GPILS, GPILSConfig
+from morl_baselines_torch.envs import make
+from morl_baselines_torch.examples import parse_device
+
+
+def main(argv=None):
+    device = parse_device(argv, __doc__)
+    env = make("deep-sea-treasure-v0")
+    agent = GPILS(
+        env,
+        GPILSConfig(num_envs=128, buffer_size=100_000, gradient_updates=10, epsilon_decay_steps=40_000),
+        log=True,
+        device=device,
+    )
+    agent.train(
+        total_timesteps=200_000,
+        ref_point=np.array([0.0, -50.0]),
+        known_pareto_front=env.pareto_front(0.98),
+        timesteps_per_iter=10_000,
+        weight_selection_algo="gpi-ls",
+    )
+    print("CCS:", agent.ccs)
+    return agent
+
+
+if __name__ == "__main__":
+    main()

@@ -383,3 +383,82 @@ class ModelEnv:
         else:
             term = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
         return next_obs, reward, term, unc
+
+
+@torch.no_grad()
+def visualize_eval(
+    act_fn,
+    env,
+    model: ProbabilisticEnsemble | None = None,
+    model_state: EnsembleState | None = None,
+    w=None,
+    horizon: int = 10,
+    gen: torch.Generator | None = None,
+    compound: bool = True,
+    save_path: str | None = None,
+):
+    """Diagnostic plot of model predictions against a real-env rollout.
+
+    Reference common/model_based/utils.py:190-337 drives the real env with
+    the agent for ``horizon`` steps and overlays the learned model's
+    (compounded or one-step) predictions per obs/reward dimension.  One env
+    on the generator's device; ``act_fn(obs (1, obs_dim), w, gen) -> action
+    (1, ...)`` is the evaluation contract.  Returns the matplotlib figure
+    (also saved to ``save_path`` when given).  matplotlib is imported here.
+    """
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    state, obs = env.reset(1, gen)
+    real_obs, real_rew, acts = [obs[0].cpu().numpy()], [], []
+    for _ in range(horizon):
+        a = act_fn(obs, w, gen)
+        out = env.step(state, a, env.sample_noise(1, gen))
+        acts.append(a.to(torch.float32).reshape(-1))
+        real_obs.append(out.obs[0].cpu().numpy())
+        real_rew.append(out.reward[0].cpu().numpy())
+        state, obs = out.state, out.obs
+    real_obs, real_rew = np.stack(real_obs), np.stack(real_rew)
+
+    pred_obs = pred_rew = None
+    if model is not None and model_state is not None:
+        menv = ModelEnv(model)
+        dev = model_state.in_mean.device
+        cur = torch.as_tensor(real_obs[0], device=dev)[None]
+        po, pr = [real_obs[0]], []
+        for t in range(horizon):
+            src = cur if compound else torch.as_tensor(real_obs[t], device=dev)[None]
+            nxt, rew, _, _ = menv.step(model_state, src, acts[t].to(dev)[None], gen)
+            po.append(nxt[0].cpu().numpy())
+            pr.append(rew[0].cpu().numpy())
+            cur = nxt
+        pred_obs, pred_rew = np.stack(po), np.stack(pr)
+
+    obs_dim, rew_dim = real_obs.shape[-1], real_rew.shape[-1]
+    n = obs_dim + rew_dim
+    ncols = min(4, n)
+    nrows = -(-n // ncols)
+    fig, axes = plt.subplots(nrows, ncols, figsize=(3 * ncols, 2.2 * nrows), squeeze=False)
+    flat = axes.ravel()
+    for i in range(obs_dim):
+        flat[i].plot(real_obs[:, i], label="real")
+        if pred_obs is not None:
+            flat[i].plot(pred_obs[:, i], "--", label="model")
+        flat[i].set_title(f"obs[{i}]", fontsize=8)
+    for j in range(rew_dim):
+        ax = flat[obs_dim + j]
+        ax.plot(real_rew[:, j], label="real")
+        if pred_rew is not None:
+            ax.plot(pred_rew[:, j], "--", label="model")
+        ax.set_title(f"reward[{j}]", fontsize=8)
+    for ax in flat[n:]:
+        ax.axis("off")
+    flat[0].legend(fontsize=7)
+    fig.tight_layout()
+    if save_path is not None:
+        fig.savefig(save_path, dpi=80)
+    return fig

@@ -75,14 +75,29 @@ class EnsembleDense(nn.Module):
     ``weight`` is (members, in, out), the layout of a flax kernel under
     ``nn.vmap``; ``bias`` is (members, out).  The input is (B, in), shared by
     every member, or (members, B, in); the output is (members, B, out).
+    ``linear_init`` draws each member's kernel as ``dense`` draws an
+    ``nn.Linear`` weight, (out, in), and stores its transpose, so a member
+    drawn from a seed equals a one-member ``dense`` layer of that seed.
     """
 
-    def __init__(self, members: int, in_features: int, out_features: int, gen: torch.Generator | None = None):
+    def __init__(
+        self,
+        members: int,
+        in_features: int,
+        out_features: int,
+        gen: torch.Generator | None = None,
+        linear_init: bool = False,
+    ):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(members, in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(members, out_features))
         with torch.no_grad():
-            _lecun_normal_(self.weight, in_features, gen)
+            if linear_init:
+                w = torch.empty(members, out_features, in_features)
+                _lecun_normal_(w, in_features, gen)
+                self.weight.copy_(w.transpose(1, 2))
+            else:
+                _lecun_normal_(self.weight, in_features, gen)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         w, b = self.weight, self.bias
@@ -126,7 +141,9 @@ class MLP(nn.Module):
     or "tanh" for MOPPO's nets), the middle two as the options ask.  Dropout
     runs only when the forward is given a generator (flax
     ``deterministic=False``).  With ``members`` every layer
-    carries a leading ensemble axis and the output is (members, B, ...).
+    carries a leading ensemble axis and the output is (members, B, ...);
+    ``linear_init`` draws each member as the one-member ``dense`` trunk does
+    (``EnsembleDense``).
     """
 
     def __init__(
@@ -139,6 +156,7 @@ class MLP(nn.Module):
         use_layernorm: bool = False,
         members: int | None = None,
         activation: str = "relu",
+        linear_init: bool = False,
     ):
         super().__init__()
         self.act = _ACTS[activation]
@@ -146,7 +164,9 @@ class MLP(nn.Module):
         if members is None:
             self.layers = nn.ModuleList(dense(a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
         else:
-            self.layers = nn.ModuleList(EnsembleDense(members, a, b, gen) for a, b in zip(sizes[:-1], sizes[1:]))
+            self.layers = nn.ModuleList(
+                EnsembleDense(members, a, b, gen, linear_init) for a, b in zip(sizes[:-1], sizes[1:])
+            )
         self.norms = nn.ModuleList(LayerNorm(h, members) for h in hidden) if use_layernorm else None
         self.n_hidden = len(hidden)
         self.dropout_rate = dropout_rate
@@ -298,7 +318,13 @@ class EnvelopeQNet(nn.Module):
     ``image_shape=(k, H, W)``: the flat obs are k stacked grayscale frames,
     which go through a ``NatureCNN`` trunk of ``cnn_features`` outputs
     before the conditioned MLP head (the reference's mario path).  Flat obs
-    keep the replay buffer and the batches 1-D."""
+    keep the replay buffer and the batches 1-D.
+
+    ``members=S`` stacks S Q-nets on a leading axis (the seed axis of the
+    sweep's stacked trial): obs (S, M, O) and w (S, M, d) give (S, M, A, d),
+    one ``baddbmm`` a layer.  Each member draws its head as the one-seed
+    net does, so ``stack_members`` puts seed s's one-seed params in member s.
+    The NatureCNN trunk has no member axis."""
 
     def __init__(
         self,
@@ -309,17 +335,23 @@ class EnvelopeQNet(nn.Module):
         gen: torch.Generator | None = None,
         image_shape: Sequence[int] | None = None,
         cnn_features: int = 512,
+        members: int | None = None,
     ):
         super().__init__()
         self.num_actions = num_actions
         self.reward_dim = reward_dim
+        self.members = members
         self.image_shape = None if image_shape is None else tuple(image_shape)
+        if self.image_shape is not None and members is not None:
+            raise NotImplementedError(
+                "a NatureCNN trunk with a member axis is not ported (ROADMAP: the stacked NatureCNN trunk)"
+            )
         if self.image_shape is not None:
             if obs_dim != int(np.prod(self.image_shape)):
                 raise ValueError(f"obs_dim {obs_dim} is not the size of image_shape {self.image_shape}")
             self.cnn = NatureCNN(self.image_shape, cnn_features, gen)
             obs_dim = cnn_features
-        self.mlp = MLP(obs_dim + reward_dim, hidden, num_actions * reward_dim, gen)
+        self.mlp = MLP(obs_dim + reward_dim, hidden, num_actions * reward_dim, gen, members=members, linear_init=True)
 
     def forward(self, obs: torch.Tensor, w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         """``dtype`` (bfloat16) computes the MLP head's Dense layers in it, with

@@ -4,7 +4,7 @@ from .accrued import AccruedRewardReplayBuffer, AccruedTransition
 from .buffer import MemberReplayBuffer, ReplayBuffer, Transition
 from .diverse import DiverseMemory
 from .episodic import EpisodeBatch, EpisodicBuffer, crowding_distance
-from .prioritized import PrioritizedReplayBuffer
+from .prioritized import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer
 
 __all__ = [
     "AccruedRewardReplayBuffer",
@@ -12,6 +12,7 @@ __all__ = [
     "DiverseMemory",
     "EpisodeBatch",
     "EpisodicBuffer",
+    "MemberPrioritizedReplayBuffer",
     "MemberReplayBuffer",
     "PrioritizedReplayBuffer",
     "ReplayBuffer",

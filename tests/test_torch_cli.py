@@ -138,3 +138,68 @@ def test_sweep_on_cpu(tmp_path):
     for r in recs:
         assert len(r["seed_hypervolumes"]) == 2 and r["avg_hypervolume"] == float(np.mean(r["seed_hypervolumes"]))
     assert best[0] == max(r["avg_hypervolume"] for r in recs)
+
+
+def test_sweep_vmapped_seeds():
+    """Mirror of tests/test_extras.py::test_sweep_vmapped_seeds: the stacked
+    trial trains 3 seeds as one state and scores each seed's front."""
+    score, scores = sweep.run_trial_vmapped(
+        "envelope", "deep-sea-treasure-v0", ref_point=[0.0, -50.0],
+        overrides={"num_envs": 4, "buffer_size": 512, "batch_size": 16, "hidden": (32, 32), "learning_starts": 64},
+        num_seeds=3, num_timesteps=1000, device="cpu",
+    )
+    assert len(scores) == 3
+    assert all(s >= 0.0 for s in scores)
+    assert score == sum(scores) / 3
+
+
+def _recording(monkeypatch, calls):
+    """Record which trial path each trial takes, returning a fixed score."""
+    def stacked(algo, env_id, ref_point, overrides, num_seeds, num_timesteps, device="cuda"):
+        calls.append(("stacked", algo))
+        return 1.0, [1.0] * num_seeds
+
+    def build(algo, env_id, ref_point, overrides, seed, device="cuda"):
+        calls.append(("sequential", algo))
+        raise StopIteration  # the sequential path was taken; nothing to train
+
+    monkeypatch.setattr(sweep, "run_trial_vmapped", stacked)
+    monkeypatch.setattr(sweep, "_build_agent", build)
+
+
+def test_trial_dispatch(monkeypatch, tmp_path):
+    """Envelope with flat obs goes stacked by default; ``--no-vmap-seeds``, an
+    image trunk and CAPQL (which also has ``train_segment`` and
+    ``_eval_front``) go sequential by rule."""
+    calls = []
+    _recording(monkeypatch, calls)
+    assert sweep.run_trial("envelope", "deep-sea-treasure-v0", [0.0, -50.0], {}, 2, 100, device="cpu") == (1.0, [1.0, 1.0])
+    assert calls == [("stacked", "envelope")]
+    for algo, overrides, vmap in (("envelope", {}, False), ("envelope", {"image_shape": (4, 84, 84)}, True),
+                                  ("capql", {}, True)):
+        calls.clear()
+        with pytest.raises(StopIteration):
+            sweep.run_trial(algo, "deep-sea-treasure-v0", [0.0, -50.0], overrides, 2, 100, device="cpu", vmap_seeds=vmap)
+        assert calls == [("sequential", algo)]
+    assert sweep.stacks_seeds("envelope", {"num_envs": 4}) and not sweep.stacks_seeds("capql", {})
+    calls.clear()
+    args = ["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", "0", "-50", "--space",
+            json.dumps({"learning_rate": {"values": [1e-3]}}), "--num-trials", "1", "--num-seeds", "2",
+            "--num-timesteps", "100", "--out", str(tmp_path / "s.jsonl"), "--device", "cpu"]
+    sweep.main(args)
+    with pytest.raises(StopIteration):
+        sweep.main([*args, "--no-vmap-seeds"])
+    assert calls == [("stacked", "envelope"), ("sequential", "envelope")]
+
+
+def test_stacked_seeds_start_where_sequential_seeds_start():
+    """Below ``learning_starts`` no seed learns, so each seed's front is its
+    initial greedy policy's: the stacked trial's per-seed hypervolumes equal
+    the sequential trial's (deterministic deep-sea-treasure, same 32 weights
+    and 500-step episodes)."""
+    overrides = {"num_envs": 4, "buffer_size": 256, "batch_size": 8, "hidden": (16, 16), "learning_starts": 1000}
+    args = ("envelope", "deep-sea-treasure-v0", [0.0, -50.0], overrides, 4, 64)
+    stacked = sweep.run_trial(*args, device="cpu")
+    sequential = sweep.run_trial(*args, device="cpu", vmap_seeds=False)
+    np.testing.assert_allclose(stacked[1], sequential[1], rtol=1e-6)
+    assert len(set(stacked[1])) > 1, "the seeds' initial policies must differ"

@@ -152,7 +152,7 @@ def _jax_vec_step(jvenv, state, actions, stats, gamma):
 
 def test_registry_and_sell_cycle():
     with pytest.raises(KeyError):
-        make("mo-hopper-v5")  # an id the port does not have (the host-stepped MuJoCo hopper)
+        make("bogus-v0")  # an id neither package has
     env = make("minecart-deterministic-v0")
     assert env.name == "minecart-deterministic-v0" and env.obs_dim == 7 and env.num_actions == 6
     # mirror tests/test_envs.py::test_minecart_sell_cycle on a batch of one
@@ -260,3 +260,20 @@ def test_normalize_reward_member_axis():
             np.testing.assert_allclose(outs[t][p].numpy(), o.numpy(), rtol=1e-6)
         for a, b in zip(pop, one):
             np.testing.assert_allclose(a[p].numpy(), b.numpy(), rtol=1e-6)
+
+
+def test_array_box_sample():
+    """``ArrayBox.sample`` (JAX ``envs/base.py::ArrayBox.sample``): uniform in
+    [low, high) cast to the box's dtype, uint8 by default, one row per draw."""
+    from morl_baselines_tpu.envs.base import ArrayBox as JArrayBox
+    from morl_baselines_torch.envs.base import ArrayBox
+
+    gen = torch.Generator().manual_seed(0)
+    box = ArrayBox(0, 255, (4, 84, 84))
+    x = box.sample(gen, 3)
+    want = np.asarray(JArrayBox(0, 255, (4, 84, 84)).sample(jax.random.key(0)))
+    assert x.shape == (3, *want.shape) and x.dtype == torch.uint8 and want.dtype == np.uint8
+    assert int(x.min()) == 0 and int(x.max()) == 254  # floor of [0, 255): both ends reached over 84,672 draws
+    assert abs(float(x.float().mean()) - float(want.mean())) < 1.0
+    f = ArrayBox(-1.0, 2.0, (5,), torch.float32).sample(gen, 1000)
+    assert f.dtype == torch.float32 and float(f.min()) >= -1.0 and float(f.max()) < 2.0
