@@ -107,7 +107,22 @@ seed's buffer its own, the 4 fronts evaluated as one batch and each scored
 on the card), then ``cli.sweep.main`` with the stacked trial (4 trials x 4
 seeds, 2 rungs, every seed's front scored on the card), then one fixed
 trial stacked against ``--no-vmap-seeds`` in turns (wall times, launches
-an iteration).
+an iteration).  Then slice 11: the ``mesh`` path initialises a world-size-1
+NCCL process group (one card; a ``file://`` rendezvous in a temporary
+directory, destroyed after the phase) and runs Envelope at the main path's
+config sharded through ``parallel.make_mesh`` and ``shard_agent_state``
+beside the unsharded run of the same seed (Q-nets, targets and buffers
+bitwise equal; ms and launches an iteration, the all-gather's bytes, ms and
+launches), then ``MORLD.train`` at ``[morld_train]``'s config with
+``mesh=`` over ``pop`` beside the unsharded run (bitwise equal), its front
+scored on the card; the ``envelope_pixel_seeds`` path trains 4 seeds of
+``[envelope_pixel]``'s config through the stacked NatureCNN trunk (the
+buffers' 42 GiB reckoned first; ms, launches and device busy an iteration
+beside the one-seed pixel iteration, the peak memory, member s's Q-values
+against its one-seed net, the trunk's per-member convolutions beside one
+grouped convolution a layer, the 4 x 32 evaluation episodes as one batch, each front
+scored on the card), then one pixel trial that the sweep's dispatch sends
+down the stacked path.
 MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
@@ -120,6 +135,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import statistics
@@ -173,6 +189,8 @@ from morl_baselines_torch.cli import experiments, launch, sweep
 from morl_baselines_torch.core.indicators import _hv_wfg
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import VectorMOEnv, fishwood_utility, lander_heuristic, make
+from morl_baselines_torch.parallel import assert_replicas_synced, make_mesh, shard_agent_state
+from morl_baselines_torch.replay import Transition
 from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics, rollout_episode
 from morl_baselines_torch.evaluation import evaluation as evaluation_module
 from morl_baselines_torch.ops import _build
@@ -349,6 +367,13 @@ SWEEP_SPACE = Path(__file__).resolve().parent / "configs" / "sweeps" / "envelope
 # slice 10: Envelope with a seed axis at the main path's config, the stacked sweep, the host MuJoCo envs
 SEEDS = 4  # 4 x 32768 = 131,072 envs in one stacked state
 SEEDS_ITERS = 20  # timed stacked iterations after 2 warm-up ones (the one-seed [train_segment] times 20 as well)
+# slice 11: the mesh path (a world-size-1 NCCL group: one card) and the stacked pixel trunk
+MESH_ITERS = 20  # timed iterations of each Envelope run after 2 warm-up ones, sharded and unsharded
+MESH_BATCHED = {"env_state", "obs", "weights", "stats"}
+PIXEL_SEEDS = 4  # seeds of PIXEL_CONFIG stacked: 4 x 64 envs, 4 x 50,000 frames of (4, 84, 84) float32 twice
+PIXEL_SEEDS_ITERS = 20  # timed stacked iterations after learning_starts (the one-seed [envelope_pixel] times 20)
+PIXEL_SEEDS_QTOL = dict(rtol=1e-4, atol=1e-5)  # member s's Q-values against its one-seed net (float32, TF32 off)
+PIXEL_TRIAL_STEPS = 40 * 64  # the sweep's stacked pixel trial: 40 iterations of the 4 seeds
 MUJOCO_ENVS = {"mo-hopper-v5": 64, "mo-halfcheetah-v5": 64, "mo-reacher-v5": 16}
 MUJOCO_STEPS = 100
 MUJOCO_EPISODE_STEPS = 40  # episodes cut so that every env resets on the host twice in the window
@@ -603,7 +628,8 @@ def phase_train_segment(smi: str, cfg: EnvelopeConfig = CONFIG, tag: str = "trai
     prof = profile_window(lambda: agent.train_segment(state, 3), f"{tag} 3 iters")
     if prof:
         log(f"[{tag}] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms an iteration")
-    return dict(ms=1e3 * dt / iters, launches=prof and prof["launches"] / 3, busy_ms=prof and prof["busy_ms"] / 3)
+    return dict(ms=1e3 * dt / iters, launches=prof and prof["launches"] / 3, busy_ms=prof and prof["busy_ms"] / 3,
+                busy_share=prof and prof["busy_ms"] / prof["wall_ms"])
 
 
 def profile_window(fn, what: str, cpu: bool = True, top: int = 8) -> dict | None:
@@ -1477,7 +1503,9 @@ def phase_envelope_pixel(smi: str) -> int:
     prof = profile_window(lambda: agent.train_segment(state, 3), "envelope_pixel 3 iterations")
     if prof:
         log(f"[envelope_pixel] {prof['launches'] / 3:.0f} launches an iteration, device busy {prof['busy_ms'] / 3:.2f} ms "
-            f"of {ms:.2f} ms ({100 * prof['busy_ms'] / 3 / ms:.1f}%)")
+            f"an iteration, {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the profiled window")
+    one_seed = dict(ms=ms, launches=prof and prof["launches"] / 3, busy_ms=prof and prof["busy_ms"] / 3,
+                    busy_share=prof and prof["busy_ms"] / prof["wall_ms"], peak_gib=peak)
     del agent, state
     torch.cuda.empty_cache()
 
@@ -1497,7 +1525,8 @@ def phase_envelope_pixel(smi: str) -> int:
     each = "; ".join(f"{name} " + ", ".join(f"{1e3 * dt:.0f} ms" for dt, _ in timer.calls[name]) for name in timer.calls)
     log(f"[envelope_pixel] Envelope.train {state.global_step} steps in {wall:.2f} s; {each}; "
         + ", ".join(f"{k}={v:.6g}" for k, v in host.items()) + f" [{smi}]")
-    return score_on_card(agent._last_front, host, DST_REF_POINT)
+    score_on_card(agent._last_front, host, DST_REF_POINT)
+    return one_seed
 
 
 def native_front(rng, n: int, d: int) -> np.ndarray:
@@ -1765,8 +1794,8 @@ def phase_train_segment_seeds(smi: str, one_seed: dict) -> int:
     prof = profile_window(lambda: agent.train_segment(state, 3), "train_segment_seeds 3 iters")
     if prof:
         log(f"[train_segment_seeds] {prof['launches'] / 3:.0f} launches an iteration (one seed: {one_seed['launches']:.0f}), "
-            f"device busy {prof['busy_ms'] / 3:.2f} ms of {ms:.2f} ms ({100 * prof['busy_ms'] / 3 / ms:.1f}%; one seed: "
-            f"{one_seed['busy_ms']:.2f} ms of {one_seed['ms']:.2f} ms)")
+            f"device busy {prof['busy_ms'] / 3:.2f} ms an iteration, {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the "
+            f"profiled window (one seed: {one_seed['busy_ms']:.2f} ms, {100 * one_seed['busy_share']:.1f}%)")
 
     weights_np = equally_spaced_weights(env.reward_dim, 32)
     weights = torch.as_tensor(weights_np, dtype=torch.float32, device="cuda")
@@ -1864,6 +1893,275 @@ def phase_trial_both_ways(smi: str) -> dict:
     log(f"[sweep_seeds] one trial of {SEEDS} seeds x {SWEEP_STEPS} steps (Envelope defaults, deep-sea-treasure): stacked "
         f"{', '.join(f'{x:.2f}' for x in walls['stacked'])} s, sequential {', '.join(f'{x:.2f}' for x in walls['sequential'])} s; "
         f"launches an iteration: stacked {launches['stacked']} for {SEEDS} seeds, one seed {launches['one seed']} [{smi}]")
+    return res
+
+
+def _transition_bytes(n: int, obs_dim: int, reward_dim: int) -> int:
+    """Bytes of one step's n transitions as ``gather_rows`` packs them: obs and
+    next obs float32, the int64 action, the float32 reward and termination."""
+    return n * (2 * 4 * obs_dim + 8 + 4 * reward_dim + 4)
+
+
+def _nets_equal(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_mesh(smi: str) -> dict:
+    """``parallel/`` on the card: a world-size-1 NCCL group (one card; NCCL
+    takes one rank a GPU), initialised here through a ``file://`` rendezvous
+    in a temporary directory and destroyed at the end.  Envelope at the main
+    path's config (32768 envs), one run sharded through ``make_mesh`` and
+    ``shard_agent_state`` and one unsharded, both from seed 0: 2 warm-up
+    iterations, ``MESH_ITERS`` timed, then 3 profiled on the sharded run (the
+    all-gather's device time and launches); the two runs' Q-nets, targets and
+    buffers must be bitwise equal.  Then ``MORLD.train`` at ``MORLD_CONFIG``
+    for 2 rounds with ``mesh=`` over ``pop`` and without: states, archives and
+    weights bitwise equal, the front scored on the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    env = make("minecart-v0")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, ("data",), device="cuda")
+            runs = {}
+            for mode in ("unsharded", "sharded"):
+                agent = Envelope(env, CONFIG)
+                state = agent.init_state(0)
+                if mode == "sharded":
+                    state = shard_agent_state(state, mesh, MESH_BATCHED)
+                    if state.shard is None or state.obs.shape[0] != NUM_ENVS:
+                        raise AssertionError("shard_agent_state did not attach a one-rank shard of all the envs")
+                agent.train_segment(state, 2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                agent.train_segment(state, MESH_ITERS)
+                torch.cuda.synchronize()
+                runs[mode] = (agent, state, 1e3 * (time.perf_counter() - t0) / MESH_ITERS)
+            (_, one, ms_one), (agent, sharded, ms_sharded) = runs["unsharded"], runs["sharded"]
+            steps = (2 + MESH_ITERS) * NUM_ENVS
+            if sharded.global_step != steps or one.global_step != steps:
+                raise AssertionError(f"global_step {sharded.global_step} / {one.global_step} != {steps}")
+            if not (_nets_equal(one.ts.net, sharded.ts.net) and _nets_equal(one.ts.target_net, sharded.ts.target_net)):
+                raise AssertionError("the sharded Envelope's Q-net differs from the unsharded one")
+            if not all(torch.equal(a, b) for a, b in zip(one.buffer.data, sharded.buffer.data)):
+                raise AssertionError("the sharded Envelope's buffer differs from the unsharded one")
+            assert_replicas_synced(sharded.ts.net)
+            gathered = _transition_bytes(NUM_ENVS, env.obs_dim, env.reward_dim)
+            launches = {}
+            for mode, (ag, st, _) in runs.items():
+                prof = profile_window(lambda: ag.train_segment(st, 3), f"mesh {mode} Envelope 3 iters", top=4)
+                launches[mode] = prof and prof["launches"] / 3
+            # the all-gather of one step's transitions (packing, the collective, unpacking): once an iteration
+            tr = Transition(sharded.obs, torch.zeros(NUM_ENVS, dtype=torch.int64, device="cuda"),
+                            torch.zeros(NUM_ENVS, env.reward_dim, device="cuda"), sharded.obs,
+                            torch.zeros(NUM_ENVS, device="cuda"))
+            gather_ms = time_ms(lambda: sharded.shard.gather_rows(tr), warmup=3, runs=5, reps=10)
+            prof = profile_window(lambda: [sharded.shard.gather_rows(tr) for _ in range(10)], "mesh all-gather x10", top=4)
+            out["envelope"] = dict(ms_unsharded=ms_one, ms_sharded=ms_sharded, launches_unsharded=launches["unsharded"],
+                                   launches_sharded=launches["sharded"], gather_bytes_a_step=gathered,
+                                   gather_ms_events=gather_ms, gather_device_ms=prof and prof["busy_ms"] / 10,
+                                   gather_launches=prof and prof["launches"] / 10)
+            e = out["envelope"]
+            log(f"[mesh] Envelope minecart num_envs={NUM_ENVS} on a 1-rank NCCL mesh: sharded {ms_sharded:.2f} ms and "
+                f"{e['launches_sharded']} launches an iteration, unsharded {ms_one:.2f} ms and {e['launches_unsharded']}; "
+                f"Q-net, target and buffer bitwise equal; the all-gather of {gathered} bytes a step {gather_ms:.4f} ms "
+                f"(events), {e['gather_device_ms']} ms of device time and {e['gather_launches']} launches [{smi}]")
+            del runs, one, sharded, agent, tr
+            torch.cuda.empty_cache()
+
+            pop_mesh = make_mesh(1, ("pop",), device="cuda")
+            morld = {}
+            for mode, m in (("unsharded", None), ("sharded", pop_mesh)):
+                algo = MORLD(make("mo-halfcheetah-jx-v5"), MORLD_CONFIG)
+                t0 = time.perf_counter()
+                st = algo.train(total_timesteps=2 * POP * MORLD_CONFIG.exchange_every, ref_point=CHEETAH_REF_POINT,
+                                mesh=m, eval_max_steps=POP_EVAL_STEPS)
+                torch.cuda.synchronize()
+                morld[mode] = (algo, st, time.perf_counter() - t0)
+            (a1, s1, w1), (a2, s2, w2) = morld["unsharded"], morld["sharded"]
+            for x, y in ((s1.actor, s2.actor), (s1.critic.net, s2.critic.net), (s1.critic.target_net, s2.critic.target_net)):
+                if not _nets_equal(x, y):
+                    raise AssertionError("the sharded MORL/D population differs from the unsharded one")
+            if not (torch.equal(s1.log_alpha, s2.log_alpha) and np.array_equal(np.stack(a1.weights), np.stack(a2.weights))
+                    and np.array_equal(np.stack(a1.archive.evaluations), np.stack(a2.archive.evaluations))):
+                raise AssertionError("the sharded MORL/D run's alpha, weights or archive differ")
+            if next(s2.actor.parameters()).shape[0] != POP:
+                raise AssertionError("the sharded MORL/D state is not gathered to all members")
+            out["morld"] = dict(s_unsharded=w1, s_sharded=w2)
+            log(f"[mesh] MORLD.train 2 rounds ({POP} members x {MORLD_CONFIG.sac.num_envs} envs) with mesh=('pop',) "
+                f"{w2:.2f} s, without {w1:.2f} s: populations, archives and weights bitwise equal; "
+                + ", ".join(f"{k}={v:.6g}" for k, v in a2._last_metrics.items()) + f" [{smi}]")
+            out["scored"] = score_on_card(a2._last_front, a2._last_metrics, CHEETAH_REF_POINT)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _member_pixel_net(agent: Envelope, stacked, s: int):
+    """A one-seed pixel Q-net holding member s of a stacked one."""
+    net = agent.make_q_net()
+    with torch.no_grad():
+        for conv, member in zip(net.cnn.convs, stacked.cnn.convs):
+            conv.weight.copy_(member.weight[s])
+            conv.bias.copy_(member.bias[s])
+        net.cnn.out.weight.copy_(stacked.cnn.out.weight[s].T)
+        net.cnn.out.bias.copy_(stacked.cnn.out.bias[s])
+        for lin, ens in zip(net.mlp.layers, stacked.mlp.layers):
+            lin.weight.copy_(ens.weight[s].T)
+            lin.bias.copy_(ens.bias[s])
+    return net
+
+
+def trunk_both_ways(cnn, frames: torch.Tensor) -> dict:
+    """The stacked NatureCNN trunk's forward and backward on ``frames`` (S,
+    M, obs_dim) as the port computes it (one ``conv2d`` a member a layer)
+    beside one grouped ``conv2d`` a layer on a (M, S·k, H, W) view of the
+    same params: event ms, device ms, launches and the outputs' max abs
+    difference."""
+    import torch.nn.functional as F
+
+    S, M = frames.shape[:2]
+    x = frames.reshape(S, M, *PIXEL_CONFIG.image_shape)
+
+    def grouped():
+        y = x.transpose(0, 1).reshape(M, -1, *x.shape[3:]) / 255.0
+        for layer in cnn.convs:
+            w = layer.weight
+            y = torch.relu(F.conv2d(y, w.reshape(-1, *w.shape[2:]), layer.bias.reshape(-1), layer.stride, groups=S))
+        y = y.reshape(M, S, -1, *y.shape[2:]).permute(1, 0, 3, 4, 2).flatten(2)
+        return torch.relu(torch.baddbmm(cnn.out.bias[:, None, :], y, cnn.out.weight))
+
+    res = {}
+    for name, fn in (("per_member", lambda: cnn(x)), ("grouped", grouped)):
+        def fwd_bwd():
+            cnn.zero_grad(set_to_none=True)
+            fn().sum().backward()
+
+        res[name] = dict(ms=time_ms(fwd_bwd, warmup=2, runs=5, reps=3))
+        prof = profile_window(fwd_bwd, f"stacked trunk {name} forward + backward", top=3)
+        res[name]["launches"] = prof and prof["launches"]
+        res[name]["device_ms"] = prof and prof["busy_ms"]
+    with torch.no_grad():
+        res["max_abs_diff"] = float((cnn(x) - grouped()).abs().max())
+    cnn.zero_grad(set_to_none=True)
+    return res
+
+
+def phase_envelope_pixel_seeds(smi: str, one_seed: dict) -> dict:
+    """Envelope with the stacked NatureCNN trunk: ``PIXEL_SEEDS`` seeds at
+    ``PIXEL_CONFIG``'s widths (64 envs a seed, a 50,000-row buffer of (4, 84,
+    84) float32 frames a seed), the buffer's bytes reckoned first.  Past
+    ``learning_starts``, ``PIXEL_SEEDS_ITERS`` timed iterations and 3
+    profiled beside ``[envelope_pixel]``'s one-seed iteration of this run;
+    the peak memory; member s's Q-values on one batch against a one-seed net
+    holding member s's params; the ``PIXEL_SEEDS`` fronts of 32 weights
+    evaluated as one batch, each scored on the card.  Then one pixel trial
+    through ``sweep.run_trial``, which must dispatch it to ``run_trial_vmapped``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = make("deep-sea-treasure-pixel-stack-v0")
+    cfg, N, S = PIXEL_CONFIG, PIXEL_CONFIG.num_envs, PIXEL_SEEDS
+    buffer_bytes = 2 * S * cfg.buffer_size * env.obs_dim * 4
+    free, total = torch.cuda.mem_get_info()
+    log(f"[envelope_pixel_seeds] the {S} seeds' frame buffers take {buffer_bytes / 2**30:.2f} GiB "
+        f"(2 x {S} x {cfg.buffer_size} x {env.obs_dim} x 4 B); {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    if buffer_bytes > free:
+        raise AssertionError("the stacked pixel buffers do not fit the free device memory")
+    torch.cuda.reset_peak_memory_stats()
+    agent = Envelope(env, cfg)
+    state = agent.init_state_seeds(range(S))
+    agent.train_segment(state, cfg.learning_starts // N + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train_segment(state, PIXEL_SEEDS_ITERS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PIXEL_SEEDS_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not _params_finite(state.ts.net) or not bool(torch.isfinite(state.loss).all()):
+        raise AssertionError(f"non-finite Q-net params or losses {state.loss.tolist()}")
+    rows = state.buffer.data.obs[:, : state.buffer.size]
+    if any(torch.equal(rows[a], rows[b]) for a in range(S) for b in range(a + 1, S)):
+        raise AssertionError("two seeds hold the same buffer rows")
+    ratio = ms / one_seed["ms"]
+    log(f"[envelope_pixel_seeds] {S} seeds x num_envs={N} image={cfg.image_shape} hidden={cfg.hidden} "
+        f"buffer={cfg.buffer_size}: {ms:.2f} ms/iteration, {ratio:.2f}x the one-seed pixel iteration "
+        f"({one_seed['ms']:.2f} ms), {S / ratio:.2f}x less time a seed; losses {[round(float(x), 4) for x in state.loss]}; "
+        f"peak device memory {peak:.2f} GiB (one seed {one_seed['peak_gib']:.2f}) [{smi}]")
+    prof = profile_window(lambda: agent.train_segment(state, 3), "envelope_pixel_seeds 3 iterations")
+    if prof:
+        log(f"[envelope_pixel_seeds] {prof['launches'] / 3:.0f} launches an iteration (one seed {one_seed['launches']:.0f}), "
+            f"device busy {prof['busy_ms'] / 3:.2f} ms an iteration, {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of "
+            f"the profiled window's {prof['wall_ms'] / 3:.2f} ms an iteration (one seed {one_seed['busy_ms']:.2f} ms, "
+            f"{100 * one_seed['busy_share']:.1f}%)")
+
+    batch = state.buffer.data.obs[:, :64]  # (S, 64, obs_dim) stored frames
+    w = torch.softmax(torch.randn(S, 64, env.reward_dim, generator=torch.Generator("cuda").manual_seed(0),
+                                  device="cuda"), dim=-1)
+    with torch.no_grad():
+        q = state.ts.net(batch, w)
+        err = 0.0
+        for s in range(S):
+            q1 = _member_pixel_net(agent, state.ts.net, s)(batch[s], w[s])
+            torch.testing.assert_close(q[s], q1, **PIXEL_SEEDS_QTOL)
+            err = max(err, float((q[s] - q1).abs().max()))
+    log(f"[envelope_pixel_seeds] member s's Q-values on 64 stored frames equal its one-seed net's: max abs err {err:.3g} "
+        f"(tolerance {PIXEL_SEEDS_QTOL})")
+    # the rows a seed of the update's forwards: the batch tiled over the sampled weights
+    trunk = trunk_both_ways(state.ts.net.cnn, state.buffer.data.obs[:, : cfg.batch_size * cfg.num_sample_w])
+    log(f"[envelope_pixel_seeds] the stacked trunk's forward + backward at {S} x {cfg.batch_size * cfg.num_sample_w} "
+        f"rows: one conv2d a member (the port) {trunk['per_member']['ms']:.3f} ms ({trunk['per_member']['device_ms']} ms "
+        f"device, {trunk['per_member']['launches']} launches), one grouped conv2d a layer {trunk['grouped']['ms']:.3f} ms "
+        f"({trunk['grouped']['device_ms']} ms device, {trunk['grouped']['launches']} launches); outputs differ by "
+        f"{trunk['max_abs_diff']:.3g} [{smi}]")
+
+    weights_np = equally_spaced_weights(env.reward_dim, 32)
+    weights = torch.as_tensor(weights_np, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    fronts = agent._eval_front(state.ts.net, weights, 1, env.max_episode_steps).cpu().numpy()
+    eval_s = time.perf_counter() - t0
+    if fronts.shape != (S, 32, env.reward_dim):
+        raise AssertionError(f"stacked fronts of shape {fronts.shape}")
+    for front in fronts:
+        score_on_card(front, multi_policy_metrics(front, DST_REF_POINT, weights_np), DST_REF_POINT)
+    log(f"[envelope_pixel_seeds] {S} fronts of 32 weights evaluated as one batch of {S * 32} episodes in {eval_s:.2f} s, "
+        f"each scored on the card")
+    res = dict(ms=ms, one_seed_ms=one_seed["ms"], launches=prof and prof["launches"] / 3,
+               one_seed_launches=one_seed["launches"], busy_ms=prof and prof["busy_ms"] / 3,
+               busy_share=prof and prof["busy_ms"] / prof["wall_ms"], peak_gib=peak,
+               buffer_gib=buffer_bytes / 2**30, eval_s=eval_s, q_max_abs_err=err, trunk=trunk)
+    del agent, state, rows, batch, q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vmapped = []
+    inner = sweep.run_trial_vmapped
+
+    def counted(*args, **kwargs):
+        vmapped.append(args[1])
+        return inner(*args, **kwargs)
+
+    overrides = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "seed"}
+    sweep.run_trial_vmapped = counted
+    try:
+        t0 = time.perf_counter()
+        mean_hv, hvs = sweep.run_trial("envelope", "deep-sea-treasure-pixel-stack-v0", DST_REF_POINT, overrides, S,
+                                       PIXEL_TRIAL_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        trial_s = time.perf_counter() - t0
+    finally:
+        sweep.run_trial_vmapped = inner
+    if vmapped != ["deep-sea-treasure-pixel-stack-v0"] or len(hvs) != S or not all(math.isfinite(h) for h in hvs):
+        raise AssertionError(f"the pixel trial took {vmapped or 'the sequential path'}, scores {hvs}")
+    res.update(trial_s=trial_s, trial_hvs=hvs)
+    log(f"[envelope_pixel_seeds] sweep.run_trial on deep-sea-treasure-pixel-stack-v0 went stacked: {S} seeds x "
+        f"{PIXEL_TRIAL_STEPS} steps at the example's widths in {trial_s:.2f} s, hypervolumes {hvs} [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1985,7 +2283,7 @@ def main() -> int:
             phase_morld_step(smi, "mo-lunar-lander-v3", MORLD_LUNAR_CONFIG, "morld_lunar_step"),
             phase_morld_train(smi, "mo-lunar-lander-v3", MORLD_LUNAR_CONFIG, LUNAR_REF_POINT, "morld_lunar_train"),
         ),
-        "envelope_pixel": lambda: phase_envelope_pixel(smi),
+        "envelope_pixel": lambda: timings.update(pixel_one_seed=phase_envelope_pixel(smi)),
         "pql_four_room": lambda: phase_pql(smi, "four-room-v0", PQL4_CONFIG, PQL4_STEPS, FOUR_ROOM_REF_POINT, "pql_four_room"),
         "launch": lambda: (phase_train_segment(smi, BF16_CONFIG, "train_segment_bf16"), phase_launch(smi)),
         "checkpoint": lambda: phase_checkpoint(smi),
@@ -1995,6 +2293,8 @@ def main() -> int:
             phase_sweep_seeds(smi),
             timings.update(trial=phase_trial_both_ways(smi)),
         ),
+        "mesh": lambda: timings.update(mesh=phase_mesh(smi)),
+        "envelope_pixel_seeds": lambda: timings.update(pixel_seeds=phase_envelope_pixel_seeds(smi, timings["pixel_one_seed"])),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}
@@ -2030,7 +2330,7 @@ def main() -> int:
     log(f"[envs] {json.dumps(envs)}")
     log(f"[native] {json.dumps(host_hv)}")
     log(f"[mujoco] {json.dumps(mujoco)}")
-    log(f"[sweep_seeds] {json.dumps(timings)}")
+    log(f"[timings] {json.dumps(timings)}")
     log(smi)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

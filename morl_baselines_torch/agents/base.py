@@ -10,7 +10,8 @@ lists, dicts and the attributes of plain objects (the replay buffers), and
 stores tensors, modules and optimizers (``state_dict``), generators
 (``get_state``), numpy arrays (as tensors of their dtype) and Python scalars,
 every tensor on the CPU: ``torch.load(..., weights_only=True)`` reads it.
-Envs and vector envs are configuration, not state: the template's are kept.
+Envs, vector envs and a sharded state's ``RowShard`` are configuration, not
+state: the template's are kept.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ from torch import nn
 from ..envs.base import MOEnv
 from ..envs.vector import VectorMOEnv
 from ..models.networks import MemberAdam
+from ..parallel.mesh import RowShard
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger
 
 _OPTIMIZERS = (torch.optim.Optimizer, MemberAdam)
 _SCALARS = (bool, int, float, str, type(None))
-_STATIC = (MOEnv, VectorMOEnv)
+_STATIC = (MOEnv, VectorMOEnv, RowShard)
 
 
 def _cpu(x: Any) -> Any:

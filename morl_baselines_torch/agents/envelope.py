@@ -61,6 +61,7 @@ from ..models.networks import (
     polyak_update,
     stack_members,
 )
+from ..parallel.mesh import RowShard, gather_rows, local
 from ..replay.buffer import MemberReplayBuffer, ReplayBuffer, Transition
 from ..replay.prioritized import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer
 from ..utils.schedules import linearly_decaying_value
@@ -108,6 +109,7 @@ class EnvelopeState:
     global_step: int  # env steps (counts individual env transitions)
     iter_count: int  # actor-learner iterations
     loss: torch.Tensor  # last update's loss (NaN before the first)
+    shard: RowShard | None = None  # this rank's rows of the envs (``parallel.shard_agent_state``)
 
 
 @dataclass
@@ -178,13 +180,12 @@ class Envelope(MOAgentBase):
 
     def init_state_seeds(self, seeds) -> EnvelopeSeedsState:
         """One state of ``len(seeds)`` seeds on a leading axis; member s's
-        Q-net equals ``init_state(seeds[s])``'s.  The envs, episode weights
-        and batches draw from one generator seeded ``seeds[0]``.  Flat
-        observations only: with ``image_shape`` it raises ``NotImplementedError``."""
+        Q-net (its NatureCNN trunk too, with ``image_shape``) equals
+        ``init_state(seeds[s])``'s.  The envs, episode weights and batches
+        draw from one generator seeded ``seeds[0]``."""
         cfg = self.cfg
         seeds = [int(x) for x in seeds]
         S, n, dev = len(seeds), cfg.num_envs, self.device
-        # EnvelopeQNet raises for an image_shape: the NatureCNN trunk has no member axis yet
         make = lambda members, gen: EnvelopeQNet(  # noqa: E731
             self.obs_dim, self.env.num_actions, self.reward_dim, cfg.hidden, gen, cfg.image_shape, members=members
         )
@@ -351,33 +352,37 @@ class Envelope(MOAgentBase):
         if isinstance(state, EnvelopeSeedsState):
             return self._train_segment_seeds(state, num_iters)
         cfg = self.cfg
-        n, gen, dev = cfg.num_envs, state.gen, self.device
+        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
         ts, buffer = state.ts, state.buffer
         for _ in range(num_iters):
             eps = self._epsilon(state.global_step)
-            # epsilon-greedy batched act
+            # epsilon-greedy batched act (a shard acts on its rows, drawing for all n)
             greedy = self._greedy_actions(ts.net, state.obs, state.weights)
-            rand_a = torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev)
-            explore = torch.rand((n,), generator=gen, device=dev) < eps
+            rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
+            explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < eps
             actions = torch.where(explore, rand_a, greedy)
 
-            out = self.venv.step(state.env_state, actions, gen)
+            out = self.venv.step(state.env_state, actions, gen, shard)
             done = out.terminated | out.truncated
             state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
 
-            # store transitions: next_obs must be the pre-reset final obs
+            # store transitions: next_obs must be the pre-reset final obs; a
+            # shard's rows are all-gathered, so every replica stores all n
             buffer.add_batch(
-                Transition(
-                    obs=state.obs,
-                    action=actions,
-                    reward=out.reward,
-                    next_obs=out.final_obs,
-                    terminated=out.terminated.to(torch.float32),
+                gather_rows(
+                    shard,
+                    Transition(
+                        obs=state.obs,
+                        action=actions,
+                        reward=out.reward,
+                        next_obs=out.final_obs,
+                        terminated=out.terminated.to(torch.float32),
+                    ),
                 )
             )
 
             # per-episode weight resampling (reference :526-569)
-            new_w = random_weights(gen, self.reward_dim, n=n, dist="gaussian")
+            new_w = local(shard, random_weights(gen, self.reward_dim, n=n, dist="gaussian"))
             state.weights = torch.where(done[:, None], new_w, state.weights)
             state.env_state, state.obs = out.state, out.obs
             state.global_step += n

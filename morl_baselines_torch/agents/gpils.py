@@ -55,6 +55,7 @@ from ..models.networks import (
     polyak_update,
 )
 from ..outer.linear_support import LinearSupport
+from ..parallel.mesh import RowShard, gather, gather_rows, local
 from ..replay.buffer import ReplayBuffer, Transition
 from ..replay.prioritized import PrioritizedReplayBuffer
 from ..utils.schedules import linearly_decaying_value, unique_tol
@@ -106,6 +107,7 @@ class GPILSState:
     global_step: int  # env steps (counts individual env transitions)
     iter_count: int  # actor-learner iterations
     loss: torch.Tensor  # last update's loss (NaN before the first)
+    shard: RowShard | None = None  # this rank's rows of the envs (``parallel.shard_agent_state``)
 
     @property
     def valid_support(self) -> torch.Tensor:
@@ -130,14 +132,17 @@ class LinearSupportLoop:
         state.support_size = max(len(ws), 1)
         return state
 
-    def _batch_weights(self, state, batch_size: int) -> torch.Tensor:
+    def _batch_weights(self, state, batch_size: int, task_w: torch.Tensor | None = None) -> torch.Tensor:
         """(B, d): the first half the task weights of random envs, the rest
         support rows.  With per-episode resampling the envs' task weights
         diverge, so the half-batch is drawn per row across envs (reference
-        one_update :427-433 has one env and uses its one current w)."""
+        one_update :427-433 has one env and uses its one current w).
+        ``task_w`` is all envs' task weights, a sharded state's gathered
+        once for an iteration's updates; by default gathered here."""
         gen, dev = state.gen, self.device
         half = batch_size // 2
-        w1 = state.task_w[torch.randint(0, self.cfg.num_envs, (half,), generator=gen, device=dev)]
+        task_w = gather(state.shard, state.task_w) if task_w is None else task_w
+        w1 = task_w[torch.randint(0, self.cfg.num_envs, (half,), generator=gen, device=dev)]
         w2 = state.support[torch.randint(0, state.support_size, (batch_size - half,), generator=gen, device=dev)]
         return torch.cat([w1, w2], dim=0)
 
@@ -209,7 +214,7 @@ class LinearSupportLoop:
                 break
             M = self._corner_support(linear_support, w, algo)
             self.set_weight_support(state, M)
-            state.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
+            state.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(state.task_w.shape[0], 1)
 
             # -- inner iterations on the device
             self.train_segment(state, max(1, timesteps_per_iter // cfg.num_envs), algo == "gpi-ls")
@@ -401,27 +406,31 @@ class GPILS(LinearSupportLoop, MOAgentBase):
         """Epsilon-greedy actions from ``greedy``, one vector env step, the
         transitions stored, task weights resampled at done; in place."""
         cfg = self.cfg
-        n, gen, dev = cfg.num_envs, state.gen, self.device
-        rand_a = torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev)
-        explore = torch.rand((n,), generator=gen, device=dev) < self._epsilon(state.global_step)
+        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
+        # a shard acts on its rows, drawing for all n envs
+        rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
+        explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < self._epsilon(state.global_step)
         actions = torch.where(explore, rand_a, greedy)
 
-        out = self.venv.step(state.env_state, actions, gen)
+        out = self.venv.step(state.env_state, actions, gen, shard)
         done = out.terminated | out.truncated
         state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
-        # next_obs must be the pre-reset final obs
+        # next_obs must be the pre-reset final obs; a shard's rows are all-gathered
         state.buffer.add_batch(
-            Transition(
-                obs=state.obs,
-                action=actions,
-                reward=out.reward,
-                next_obs=out.final_obs,
-                terminated=out.terminated.to(torch.float32),
+            gather_rows(
+                shard,
+                Transition(
+                    obs=state.obs,
+                    action=actions,
+                    reward=out.reward,
+                    next_obs=out.final_obs,
+                    terminated=out.terminated.to(torch.float32),
+                ),
             )
         )
         # per-episode task weight resampled uniformly from the support
         if change_w_every_episode:
-            idx = torch.randint(0, state.support_size, (n,), generator=gen, device=dev)
+            idx = local(shard, torch.randint(0, state.support_size, (n,), generator=gen, device=dev))
             state.task_w = torch.where(done[:, None], state.support[idx], state.task_w)
         state.env_state, state.obs = out.state, out.obs
         state.global_step += n
@@ -439,12 +448,13 @@ class GPILS(LinearSupportLoop, MOAgentBase):
             self._act_and_store(state, greedy, change_w_every_episode)
 
             if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
+                task_w = gather(state.shard, state.task_w)
                 for _ in range(cfg.gradient_updates):
                     if cfg.per:
                         batch, idx, _probs = buffer.sample(state.gen, cfg.batch_size)
                     else:
                         batch = buffer.sample(state.gen, cfg.batch_size)
-                    w = self._batch_weights(state, cfg.batch_size)
+                    w = self._batch_weights(state, cfg.batch_size, task_w)
                     state.loss, td_w = self._update(ts, batch, w, state.gen)
                     if cfg.per:
                         buffer.update_priorities(idx, torch.clamp(td_w, min=cfg.min_priority) ** cfg.per_alpha)

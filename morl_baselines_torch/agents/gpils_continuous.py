@@ -41,6 +41,7 @@ from ..evaluation.evaluation import evaluate_front
 from ..models.continuous import ContinuousQNet, DeterministicActor, StabilizedActor, StabilizedQNet
 from ..models.networks import TrainState, polyak_update
 from ..outer.linear_support import LinearSupport
+from ..parallel.mesh import RowShard, gather, gather_rows, global_rows, local
 from ..replay.buffer import ReplayBuffer, Transition
 from ..replay.prioritized import PrioritizedReplayBuffer
 from ..utils.schedules import unique_tol
@@ -90,6 +91,7 @@ class GPILSContState:
     global_step: int  # env steps
     iter_count: int  # actor-learner iterations
     loss: torch.Tensor  # last critic loss (NaN before the first update)
+    shard: RowShard | None = None  # this rank's rows of the envs (``parallel.shard_agent_state``)
 
     @property
     def valid_support(self) -> torch.Tensor:
@@ -177,9 +179,11 @@ class GPILSContinuous(LinearSupportLoop, MOAgentBase):
 
     # ---------------------------------------------------------------- update
 
-    def _explore(self, actions: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-        """Gaussian exploration noise, clipped to the action box."""
-        noise = torch.randn(actions.shape, generator=gen, device=actions.device) * self.cfg.exploration_noise
+    def _explore(self, actions: torch.Tensor, gen: torch.Generator, shard: RowShard | None = None) -> torch.Tensor:
+        """Gaussian exploration noise, clipped to the action box (a shard's
+        rows of the noise drawn for all envs)."""
+        shape = (global_rows(shard, actions.shape[0]), *actions.shape[1:])
+        noise = local(shard, torch.randn(shape, generator=gen, device=actions.device)) * self.cfg.exploration_noise
         return torch.clamp(actions + noise, -1.0, 1.0)
 
     @torch.no_grad()
@@ -242,23 +246,26 @@ class GPILSContinuous(LinearSupportLoop, MOAgentBase):
         """Exploration actions (uniform before ``learning_starts``), one vector
         env step, the transitions stored, task weights resampled at done."""
         cfg = self.cfg
-        n, gen, dev = cfg.num_envs, state.gen, self.device
+        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
         if state.global_step < cfg.learning_starts:
-            actions = torch.rand((n, self.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+            actions = local(shard, torch.rand((n, self.action_dim), generator=gen, device=dev)) * 2.0 - 1.0
         else:
             with torch.no_grad():
-                actions = self._explore(state.actor.net(state.obs, state.task_w), gen)
-        out = self.venv.step(state.env_state, actions, gen)
+                actions = self._explore(state.actor.net(state.obs, state.task_w), gen, shard)
+        out = self.venv.step(state.env_state, actions, gen, shard)
         done = out.terminated | out.truncated
         state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
         state.buffer.add_batch(
-            Transition(
-                obs=state.obs, action=actions, reward=out.reward, next_obs=out.final_obs,
-                terminated=out.terminated.to(torch.float32),
+            gather_rows(
+                shard,
+                Transition(
+                    obs=state.obs, action=actions, reward=out.reward, next_obs=out.final_obs,
+                    terminated=out.terminated.to(torch.float32),
+                ),
             )
         )
         if change_w_every_episode:
-            idx = torch.randint(0, state.support_size, (n,), generator=gen, device=dev)
+            idx = local(shard, torch.randint(0, state.support_size, (n,), generator=gen, device=dev))
             state.task_w = torch.where(done[:, None], state.support[idx], state.task_w)
         state.env_state, state.obs = out.state, out.obs
         state.global_step += n
@@ -272,9 +279,10 @@ class GPILSContinuous(LinearSupportLoop, MOAgentBase):
         for _ in range(num_iters):
             self._act_and_store(state, change_w_every_episode)
             if state.global_step >= cfg.learning_starts:
+                task_w = gather(state.shard, state.task_w)
                 for _ in range(cfg.gradient_updates):
                     batch = state.buffer.sample(state.gen, cfg.batch_size)
-                    self._update(state, batch, self._batch_weights(state, cfg.batch_size))
+                    self._update(state, batch, self._batch_weights(state, cfg.batch_size, task_w))
         return state
 
     # ------------------------------------------------------------------ eval

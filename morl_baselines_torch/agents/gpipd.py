@@ -243,7 +243,7 @@ class DynaLoop:
                 break
             M = self._corner_support(linear_support, w, algo)
             self.set_weight_support(base, M)
-            base.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(cfg.num_envs, 1)
+            base.task_w = torch.as_tensor(w, dtype=torch.float32, device=self.device).repeat(base.task_w.shape[0], 1)
             self._on_new_task(state, w)
 
             # sub-segments punctuated by dynamics fits and rollouts on their

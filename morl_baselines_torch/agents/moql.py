@@ -29,6 +29,7 @@ from ..core.scalarization import tchebicheff, update_utopian, weighted_sum
 from ..envs.base import MOEnv
 from ..envs.vector import VectorMOEnv
 from ..evaluation.evaluation import policy_evaluation
+from ..parallel.mesh import RowShard, gather_rows, local
 from ..utils.schedules import linearly_decaying_value
 from .base import MOAgentBase
 
@@ -61,6 +62,7 @@ class MOQLState:
     model_next: torch.Tensor | None = None  # (S, A) most recent next-state index
     model_reward: torch.Tensor | None = None  # (S, A, d) running-mean reward
     model_term: torch.Tensor | None = None  # (S, A) running-mean termination
+    shard: RowShard | None = None  # this rank's rows of the envs (``parallel.shard_agent_state``)
 
 
 class MOQLearning(MOAgentBase):
@@ -169,24 +171,29 @@ class MOQLearning(MOAgentBase):
         self._td_update(state.q_table, state.utopian, ps, pa, mr[ps, pa], state.model_next[ps, pa], mt[ps, pa])
 
     def train_segment(self, state: MOQLState, num_iters: int) -> MOQLState:
-        """Run ``num_iters`` iterations of N env steps and N TD updates, in place."""
+        """Run ``num_iters`` iterations of N env steps and N TD updates, in place.
+
+        Sharded, a rank steps its rows of the envs and all-gathers the N
+        transitions; every rank then applies all N TD updates to its replica
+        of the table in the one-process order."""
         cfg, env = self.cfg, self.env
-        n, gen = cfg.num_envs, state.gen
+        n, gen, shard = cfg.num_envs, state.gen, state.shard
         for _ in range(num_iters):
             s_idx = env.state_index(state.obs)
             greedy = self._greedy(state.q_table, state.utopian, s_idx)
             u, rand_a, plan_u = self._draws(state)
-            actions = torch.where(u < self._epsilon(state.global_step), rand_a, greedy)
+            actions = torch.where(local(shard, u) < self._epsilon(state.global_step), local(shard, rand_a), greedy)
 
-            out = self.venv.step(state.env_state, actions, gen)
+            out = self.venv.step(state.env_state, actions, gen, shard)
             # bootstrap from the pre-reset obs; a truncated episode still bootstraps
             ns_idx = env.state_index(out.final_obs)
             term = out.terminated.to(torch.float32)
+            s_idx, actions, reward, ns_idx, term = gather_rows(shard, (s_idx, actions, out.reward, ns_idx, term))
             if cfg.scalarization == "tchebicheff":
-                state.utopian = update_utopian(state.utopian, out.reward)
-            self._td_update(state.q_table, state.utopian, s_idx, actions, out.reward, ns_idx, term)
+                state.utopian = update_utopian(state.utopian, reward)
+            self._td_update(state.q_table, state.utopian, s_idx, actions, reward, ns_idx, term)
             if cfg.dyna:
-                self._dyna(state, s_idx, actions, out.reward, ns_idx, term, plan_u)
+                self._dyna(state, s_idx, actions, reward, ns_idx, term, plan_u)
             state.env_state, state.obs = out.state, out.obs
             state.global_step += n
         return state

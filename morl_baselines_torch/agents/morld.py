@@ -21,7 +21,12 @@ Two execution modes, as in the JAX package:
   member axis; each member keeps its own buffer, and in each cooperation
   pass member j learns from the batch sampled out of member
   (j - shift) mod P's buffer (``torch.roll`` along the member axis, as
-  ``jnp.roll``).
+  ``jnp.roll``).  ``train(mesh=...)`` shards the member axis over the mesh's
+  first axis (``parallel.make_mesh``): each rank trains P/W members, drawing
+  every random number for all P and keeping its block, and the four steps
+  that cross members (the cooperation roll, the first round's neighbour
+  copy, the evaluation returns and the returned state) all-gather over the
+  ranks, so every rank holds the same archive and weights.
 
 The members are ``MOSAC`` on a continuous (Box) action space and
 ``MOSACDiscrete`` on a discrete one (the lunar lander showcase), in both modes.
@@ -40,6 +45,7 @@ from ..core.weights import equally_spaced_weights, random_weights
 from ..envs.base import Box, MOEnv
 from ..evaluation.evaluation import multi_policy_metrics
 from ..models.networks import gather_members_
+from ..parallel.mesh import gather, gather_rows, global_rows, local, mesh_shard
 from ..replay.buffer import Transition
 from ..utils.schedules import nearest_neighbors
 from .base import MOAgentBase
@@ -103,12 +109,15 @@ class MORLD(MOAgentBase):
         total_timesteps: int,
         ref_point: np.ndarray | None = None,
         known_pareto_front: np.ndarray | None = None,
+        mesh=None,
         eval_max_steps: int | None = None,
     ):
         """Rounds until ``total_timesteps``; returns the vectorized mode's
-        population state or the looped mode's list of one-member states."""
+        population state (all P members, gathered from the ranks of
+        ``mesh``, a ``DeviceMesh`` whose first axis shards the members) or
+        the looped mode's list of one-member states (which ignores ``mesh``)."""
         if self.cfg.vectorized:
-            return self._train_vectorized(total_timesteps, ref_point, known_pareto_front, eval_max_steps)
+            return self._train_vectorized(total_timesteps, ref_point, known_pareto_front, mesh, eval_max_steps)
         cfg = self.cfg
         states = [agent.init_state(cfg.seed + i) for i, agent in enumerate(self.population)]
         shared_buffer = self.population[0].make_buffer() if cfg.shared_buffer else None
@@ -186,22 +195,24 @@ class MORLD(MOAgentBase):
     def _pop_step(self, state, buffer, weights: torch.Tensor, seg_iters: int, update_passes: int) -> None:
         """One population round in place: every member's train segment, then
         the neighbour-batch cooperation passes."""
-        agent = self.population[0]
+        agent, shard = self.population[0], state.shard
         agent.train_segment(state, buffer, seg_iters, weights)
-        pop = weights.shape[0]
+        pop = global_rows(shard, weights.shape[0])
         for r in range(update_passes):
-            batches = buffer.sample(state.gen, agent.cfg.batch_size)
-            # member j learns from member (j - shift) mod P's experience, as jnp.roll
+            # member j learns from member (j - shift) mod P's experience, as
+            # jnp.roll; sharded, the roll runs over every rank's batches
+            batches = gather_rows(shard, agent.sample(state, buffer))
             shift = cooperation_shift(r, pop)
-            agent._update(state, Transition(*(torch.roll(x, shift, dims=0) for x in batches)), weights)
+            agent._update(state, local(shard, Transition(*(torch.roll(x, shift, dims=0) for x in batches))), weights)
 
-    def _train_vectorized(self, total_timesteps, ref_point, known_pareto_front, eval_max_steps=None):
+    def _train_vectorized(self, total_timesteps, ref_point, known_pareto_front, mesh=None, eval_max_steps=None):
         cfg = self.cfg
         pop = cfg.pop_size
         agent = self.population[0]
-        state = agent.init_state([cfg.seed + i for i in range(pop)])
-        buffer = agent.make_buffer(pop)
-        weights = torch.as_tensor(np.stack(self.weights), dtype=torch.float32, device=self.device)
+        shard = None if mesh is None else mesh_shard(mesh)
+        state = agent.init_state([cfg.seed + i for i in range(pop)], shard)
+        buffer = agent.make_buffer(state.members)
+        weights = local(shard, torch.as_tensor(np.stack(self.weights), dtype=torch.float32, device=self.device))
         src = neighbor_sources(self.neighborhoods, pop)
 
         seg_iters = max(1, cfg.exchange_every // cfg.sac.num_envs)
@@ -212,23 +223,23 @@ class MORLD(MOAgentBase):
             global_step += seg_iters * cfg.sac.num_envs * pop
 
             if iteration == 0 and cfg.neighborhood_size > 0:
-                gather_members_(state.actor, src)
-                gather_members_(state.critic.net, src, per=2)
-                gather_members_(state.critic.target_net, src, per=2)
+                gather_members_(state.actor, src, shard=shard)
+                gather_members_(state.critic.net, src, per=2, shard=shard)
+                gather_members_(state.critic.target_net, src, per=2, shard=shard)
 
             gen = torch.Generator(self.device).manual_seed(cfg.seed + iteration)
             _, discs = agent.policy_eval(state, gen, 3, weights, max_steps=eval_max_steps)
-            evals = discs.cpu().numpy()
-            for j in range(pop):
-                self.archive.add((j, agent.member_params(state, j)), evals[j])
+            evals = gather(shard, discs).cpu().numpy()
+            for j, params in enumerate(agent.all_member_params(state)):
+                self.archive.add((j, params), evals[j])
 
             if cfg.weight_adaptation_method == "PSA":
                 self.weights = [self._psa_weight(evals[j], self.weights[j]) for j in range(pop)]
-                weights = torch.as_tensor(np.stack(self.weights), device=self.device)
+                weights = local(shard, torch.as_tensor(np.stack(self.weights), device=self.device))
 
             self._log_metrics(ref_point, known_pareto_front, global_step)
             iteration += 1
 
-        self._pop_state = state
+        self._pop_state = agent.gather_state(state)
         self._last_front = self.archive.front
-        return state
+        return self._pop_state

@@ -45,6 +45,7 @@ from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import rollout_episode
 from ..models.continuous import ContinuousQNet, DiscreteQNet, DiscreteSACActor, SquashedGaussianActor
 from ..models.networks import TrainState, polyak_update, stack_members
+from ..parallel.mesh import RowShard, gather, global_rows, local
 from ..replay.buffer import MemberReplayBuffer, Transition
 from .base import MOAgentBase
 
@@ -81,6 +82,7 @@ class MOSACState:
     gen: torch.Generator
     global_step: int  # env steps per member
     iter_count: int
+    shard: RowShard | None = None  # this rank's block of the members (MORL/D's ``mesh``)
 
     @property
     def members(self) -> int:
@@ -115,19 +117,23 @@ class MOSAC(MOAgentBase):
         cfg = self.cfg
         return ContinuousQNet(self.obs_dim, self.action_dim, self.reward_dim, cfg.hidden, members, gen, weight_conditioned=False)
 
-    def init_state(self, seeds: int | Sequence[int] | None = None) -> MOSACState:
+    def init_state(self, seeds: int | Sequence[int] | None = None, shard: RowShard | None = None) -> MOSACState:
         """A state of ``len(seeds)`` members (one for an int or None: the
-        config's seed); member p's actor and twin critics are drawn from ``seeds[p]``."""
+        config's seed); member p's actor and twin critics are drawn from
+        ``seeds[p]``.  With a ``shard`` the state holds this rank's block of
+        the members, each as the unsharded state holds it."""
         cfg = self.cfg
         seeds = [cfg.seed] if seeds is None else [seeds] if isinstance(seeds, int) else list(seeds)
-        P, N, dev = len(seeds), cfg.num_envs, self.device
-        actor = stack_members(self.make_actor, seeds).to(dev)
-        critic = stack_members(self.make_critic, seeds, per_seed=2).to(dev)
+        N, dev = cfg.num_envs, self.device
+        mine = local(shard, seeds)
+        P = len(mine)
+        actor = stack_members(self.make_actor, mine).to(dev)
+        critic = stack_members(self.make_critic, mine, per_seed=2).to(dev)
         target = copy.deepcopy(critic).requires_grad_(False)
         log_alpha = torch.full((P,), float(np.log(cfg.alpha)), device=dev, requires_grad=True)
         gen = torch.Generator(dev).manual_seed(seeds[0])
-        venv = VectorMOEnv(self.env, P * N)
-        env_state, obs = venv.reset(gen)
+        venv = VectorMOEnv(self.env, len(seeds) * N)
+        env_state, obs = venv.reset(gen, shard)
         return MOSACState(
             actor=actor,
             actor_optimizer=torch.optim.Adam(actor.parameters(), lr=cfg.learning_rate),
@@ -141,6 +147,52 @@ class MOSAC(MOAgentBase):
             gen=gen,
             global_step=0,
             iter_count=0,
+            shard=shard,
+        )
+
+    @torch.no_grad()
+    def gather_state(self, state: MOSACState) -> MOSACState:
+        """A sharded state's members from every rank, as one state of all P
+        members (the unsharded layout: nets, optimizer moments, log alpha,
+        envs); the state itself without a shard.  Shares the generator."""
+        shard = state.shard
+        if shard is None:
+            return state
+        P = state.members * shard.world
+        host = torch.Generator().manual_seed(0)  # overwritten below; keeps torch's global stream untouched
+
+        def full_module(make, module, members):
+            out = make(members, host).to(self.device)
+            out.load_state_dict({k: shard.gather(v) for k, v in module.state_dict().items()})
+            return out
+
+        def full_adam(opt, params):
+            new = torch.optim.Adam(params, **{k: v for k, v in opt.defaults.items() if k in ("lr", "betas", "eps")})
+            sd = copy.deepcopy(opt.state_dict())
+            for st in sd["state"].values():
+                for key in ("exp_avg", "exp_avg_sq"):
+                    st[key] = shard.gather(st[key])
+            new.load_state_dict(sd)
+            return new
+
+        actor = full_module(self.make_actor, state.actor, P)
+        critic = full_module(self.make_critic, state.critic.net, 2 * P)
+        target = full_module(self.make_critic, state.critic.target_net, 2 * P).requires_grad_(False)
+        log_alpha = shard.gather(state.log_alpha.detach()).requires_grad_(True)
+        gather_tree = lambda x: type(x)(*(gather_tree(v) for v in x)) if isinstance(x, tuple) else shard.gather(x)  # noqa: E731
+        return MOSACState(
+            actor=actor,
+            actor_optimizer=full_adam(state.actor_optimizer, actor.parameters()),
+            critic=TrainState(critic, target, full_adam(state.critic.optimizer, critic.parameters())),
+            log_alpha=log_alpha,
+            alpha_optimizer=full_adam(state.alpha_optimizer, [log_alpha]),
+            venv=state.venv,
+            env_state=gather_tree(state.env_state),
+            obs=shard.gather(state.obs),
+            stats=gather_tree(state.stats),
+            gen=state.gen,
+            global_step=state.global_step,
+            iter_count=state.iter_count,
         )
 
     def make_buffer(self, members: int = 1) -> MemberReplayBuffer:
@@ -160,7 +212,9 @@ class MOSAC(MOAgentBase):
         return q.reshape(P, 2, *q.shape[1:])
 
     def _normals(self, state: MOSACState, like: torch.Tensor) -> torch.Tensor:
-        return torch.randn(like.shape, generator=state.gen, device=like.device)
+        """Standard normals of ``like``'s shape (members first; a shard's block of all members' draws)."""
+        shape = (global_rows(state.shard, like.shape[0]), *like.shape[1:])
+        return local(state.shard, torch.randn(shape, generator=state.gen, device=like.device))
 
     def _update(
         self,
@@ -227,7 +281,7 @@ class MOSAC(MOAgentBase):
         w = (self.w if w is None else w).reshape(-1, self.reward_dim).expand(P, -1)
         for _ in range(num_iters):
             actions = self._explore(state)
-            out = state.venv.step(state.env_state, actions.reshape(P * N, *self.action_shape), state.gen)
+            out = state.venv.step(state.env_state, actions.reshape(P * N, *self.action_shape), state.gen, state.shard)
             done = out.terminated | out.truncated
             state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
             buffer.add_batch(
@@ -243,16 +297,24 @@ class MOSAC(MOAgentBase):
             state.global_step += N
             state.iter_count += 1
             if state.global_step >= cfg.learning_starts:
-                self._update(state, buffer.sample(state.gen, cfg.batch_size), w)
+                self._update(state, self.sample(state, buffer), w)
         return state
+
+    def sample(self, state: MOSACState, buffer: MemberReplayBuffer) -> Transition:
+        """A batch of ``batch_size`` rows from each member's ring (a sharded
+        state's members draw their block of all members' indices)."""
+        if state.shard is None:
+            return buffer.sample(state.gen, self.cfg.batch_size)
+        return buffer.sample(state.gen, self.cfg.batch_size, state.shard)
 
     @torch.no_grad()
     def _explore(self, state: MOSACState) -> torch.Tensor:
         """The actions (P, N, A) of one training step: uniform before
         ``learning_starts``, then a sample of the policy."""
         if state.global_step < self.cfg.learning_starts:
-            P, N = state.members, self.cfg.num_envs
-            return torch.rand((P, N, self.action_dim), generator=state.gen, device=self.device) * 2.0 - 1.0
+            P, N = global_rows(state.shard, state.members), self.cfg.num_envs
+            u = torch.rand((P, N, self.action_dim), generator=state.gen, device=self.device)
+            return local(state.shard, u) * 2.0 - 1.0
         mean, log_std = state.actor(state.obs)
         return SquashedGaussianActor.sample(mean, log_std, self._normals(state, mean))[0]
 
@@ -270,6 +332,12 @@ class MOSAC(MOAgentBase):
         return {k: v[p].detach().cpu().clone() for k, v in state.actor.named_parameters()}
 
     @torch.no_grad()
+    def all_member_params(self, state: MOSACState) -> list[dict]:
+        """Every member's ``member_params``, a sharded state's gathered from all ranks."""
+        full = {k: gather(state.shard, v.detach()).cpu() for k, v in state.actor.named_parameters()}
+        return [{k: v[p].clone() for k, v in full.items()} for p in range(next(iter(full.values())).shape[0])]
+
+    @torch.no_grad()
     def act_eval(self, actor: SquashedGaussianActor, obs: torch.Tensor) -> torch.Tensor:
         """tanh of each member's mean action for obs (P, M, obs_dim)."""
         return torch.tanh(actor(obs)[0])
@@ -280,7 +348,9 @@ class MOSAC(MOAgentBase):
         P, d = state.members, self.reward_dim
         w = (self.w if w is None else w).reshape(-1, d).expand(P, -1)
         act = lambda obs, w_, g: self.act_eval(state.actor, obs.reshape(P, rep, -1)).reshape(P * rep, *self.action_shape)  # noqa: E731
-        rets, discs, _ = rollout_episode(self.env, act, w.repeat_interleave(rep, dim=0), gen, self.cfg.gamma, max_steps)
+        rets, discs, _ = rollout_episode(
+            self.env, act, w.repeat_interleave(rep, dim=0), gen, self.cfg.gamma, max_steps, state.shard
+        )
         return rets.reshape(P, rep, d).mean(dim=1), discs.reshape(P, rep, d).mean(dim=1)
 
 
@@ -314,8 +384,10 @@ class MOSACDiscrete(MOSAC):
         return q.reshape(P, 2, *q.shape[1:])
 
     def _gumbel(self, state: MOSACState, like: torch.Tensor) -> torch.Tensor:
-        """Gumbel(0, 1) noise of ``like``'s shape: -log(-log(u)), u in [tiny, 1)."""
-        u = torch.rand(like.shape, generator=state.gen, device=like.device)
+        """Gumbel(0, 1) noise of ``like``'s shape: -log(-log(u)), u in [tiny, 1)
+        (members first; a shard's block of all members' draws)."""
+        shape = (global_rows(state.shard, like.shape[0]), *like.shape[1:])
+        u = local(state.shard, torch.rand(shape, generator=state.gen, device=like.device))
         return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
 
     @torch.no_grad()

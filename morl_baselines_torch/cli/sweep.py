@@ -4,8 +4,8 @@ PyTorch port of ``morl_baselines_tpu/cli/sweep.py`` (reference
 experiments/hyperparameter_search/launch_sweep.py:34-188, which runs wandb
 bayes sweeps maximizing ``avg_hypervolume`` over N seeds).  The objective is
 the same: the mean over seeds of each run's last ``eval/hypervolume``
-(0.0 for an agent that logs none).  An Envelope trial with flat
-observations trains its seeds as one seed-stacked state
+(0.0 for an agent that logs none).  An Envelope trial, on flat or pixel
+observations, trains its seeds as one seed-stacked state
 (``run_trial_vmapped``: one stream of launches for all seeds, where the JAX
 package vmaps over seeds); every other trial, and any trial under
 ``--no-vmap-seeds``, trains its seeds one after another.  The dispatch is
@@ -188,21 +188,17 @@ def run_trial_vmapped(algo: str, env_id: str, ref_point, overrides: dict, num_se
     return float(np.mean(scores)), scores
 
 
-def stacks_seeds(algo: str, overrides: dict) -> bool:
-    """Whether a trial trains its seeds stacked: Envelope with flat observations
-    (a NatureCNN trunk has no seed axis yet)."""
-    algo_cls = ALGOS[algo]
-    if not issubclass(algo_cls, Envelope):
-        return False
-    default_cfg = inspect.signature(algo_cls.__init__).parameters["config"].default
-    return _apply_overrides(default_cfg, overrides).image_shape is None
+def stacks_seeds(algo: str) -> bool:
+    """Whether a trial trains its seeds stacked: Envelope, on flat or pixel
+    observations (its NatureCNN trunk takes the seed axis too)."""
+    return issubclass(ALGOS[algo], Envelope)
 
 
 def run_trial(algo: str, env_id: str, ref_point, overrides: dict, num_seeds: int, num_timesteps: int,
               train_kwargs=None, device="cuda", vmap_seeds: bool = True):
     """Mean final hypervolume over seeds (the sweep objective, reference :100-141).
     ``vmap_seeds`` stacks the seeds where ``stacks_seeds`` allows it."""
-    if vmap_seeds and stacks_seeds(algo, overrides):
+    if vmap_seeds and stacks_seeds(algo):
         return run_trial_vmapped(algo, env_id, ref_point, overrides, num_seeds, num_timesteps, device=device)
     scores = []
     for seed in range(num_seeds):

@@ -108,6 +108,9 @@ class MOEnv:
     def reset(self, n: int, gen: torch.Generator):
         raise NotImplementedError
 
+    # the axis of ``sample_noise``'s tensor that runs over the n envs
+    noise_env_dim: int = 0
+
     def sample_noise(self, n: int, gen: torch.Generator) -> torch.Tensor | None:
         """The noise one ``step`` of n envs consumes; None for deterministic envs."""
         return None

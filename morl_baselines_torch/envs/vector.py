@@ -12,6 +12,11 @@ TD targets can bootstrap correctly (``final_obs`` + ``terminated``).
 An env that steps on the host (the MuJoCo adapter) provides
 ``vector_reset``/``vector_step``, which reset and step the whole batch in one
 host call with the autoreset done there; ``VectorMOEnv`` calls them instead.
+
+Sharded over ranks (``parallel.RowShard``), a rank holds its slice of the
+``num_envs`` env states; ``reset`` and ``step`` draw the reset and the step
+noise of all ``num_envs`` envs and keep the local rows, so each env sees the
+draws it sees in one process.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..parallel.mesh import local
 from .base import MOEnv, tree_where
 
 
@@ -40,22 +46,33 @@ class VectorMOEnv:
         self.num_envs = num_envs
         self.reward_dim = env.reward_dim
 
-    def reset(self, gen: torch.Generator):
+    def reset(self, gen: torch.Generator, shard=None):
         if hasattr(self.env, "vector_reset"):
+            _host_unsharded(self.env, shard)
             return self.env.vector_reset(gen, self.num_envs)
-        return self.env.reset(self.num_envs, gen)
+        return local(shard, self.env.reset(self.num_envs, gen))
 
-    def step(self, state, actions: torch.Tensor, gen: torch.Generator) -> VecStepOut:
+    def step(self, state, actions: torch.Tensor, gen: torch.Generator, shard=None) -> VecStepOut:
         if hasattr(self.env, "vector_step"):
+            _host_unsharded(self.env, shard)
             return self.env.vector_step(state, actions, gen)
         n = self.num_envs
-        out = self.env.step(state, actions, self.env.sample_noise(n, gen))
+        noise = local(shard, self.env.sample_noise(n, gen), self.env.noise_env_dim)
+        out = self.env.step(state, actions, noise)
         done = out.terminated | out.truncated
-        reset_state, reset_obs = self.env.reset(n, gen)
+        reset_state, reset_obs = local(shard, self.env.reset(n, gen))
         # select reset state/obs where done (same-step autoreset)
         new_state = tree_where(done, reset_state, out.state)
         obs = tree_where(done, reset_obs, out.obs)
         return VecStepOut(new_state, obs, out.reward, out.terminated, out.truncated, out.obs)
+
+
+def _host_unsharded(env: MOEnv, shard) -> None:
+    if shard is not None:
+        raise NotImplementedError(
+            f"{env.name} steps on the host; sharding its vector env over ranks is not ported "
+            "(ROADMAP Queue 3: host MuJoCo under a shard)"
+        )
 
 
 class EpisodeStats(NamedTuple):

@@ -34,6 +34,7 @@ class _Wrapper(MOEnv):
         self.max_episode_steps = env.max_episode_steps
         self.name = env.name
         self.num_states = env.num_states
+        self.noise_env_dim = env.noise_env_dim
 
     def sample_noise(self, n: int, gen: torch.Generator):
         return self.env.sample_noise(n, gen)
@@ -163,6 +164,7 @@ class MOMaxAndSkipObservation(_Wrapper):
     def __init__(self, env: MOEnv, skip: int = 4):
         super().__init__(env)
         self.skip = skip
+        self.noise_env_dim = env.noise_env_dim + 1  # the sub-step draws are stacked in front
 
     def reset(self, n: int, gen: torch.Generator):
         return self.env.reset(n, gen)

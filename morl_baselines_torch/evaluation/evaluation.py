@@ -29,6 +29,7 @@ from ..core.indicators import (
 from ..core.pareto import filter_pareto_dominated
 from ..envs.base import MOEnv
 from ..ops.pareto_kernel import non_dominated_mask_auto
+from ..parallel.mesh import global_rows, local
 from ..utils.device import resolve_device
 
 # steps between the host reads that end a rollout once every episode is done
@@ -46,6 +47,7 @@ def rollout_episode(
     gen: torch.Generator,
     gamma: float,
     max_steps: int | None = None,
+    shard=None,
 ):
     """One masked episode per row of ``w`` (M, d); returns
     (vec_return (M, d), disc_vec_return (M, d), length (M,)).
@@ -54,22 +56,25 @@ def rollout_episode(
     its episode ends (reference eval_mo's while-loop, evaluation.py:42-53).
     Every ``_DONE_CHECK_EVERY`` steps one host read asks whether every
     episode has ended, and the loop stops if so; the frozen results are the
-    same.
+    same.  With a ``shard`` (``parallel.RowShard``) the M rows are this
+    rank's of the ranks' episodes: the reset and step draws are made for all
+    of them and sliced, and the loop stops when every rank's episodes ended.
     """
     max_steps = max_steps or env.max_episode_steps or 1000
     m, d = w.shape
     dev = w.device
-    state, obs = env.reset(m, gen)
+    m_all = global_rows(shard, m)
+    state, obs = local(shard, env.reset(m_all, gen))
     done = torch.zeros((m,), dtype=torch.bool, device=dev)
     ret = torch.zeros((m, d), device=dev)
     disc = torch.zeros((m, d), device=dev)
     gpow = torch.ones((m,), device=dev)
     length = torch.zeros((m,), dtype=torch.int32, device=dev)
     for t in range(max_steps):
-        if t > 0 and t % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+        if t > 0 and t % _DONE_CHECK_EVERY == 0 and (bool(done.all()) if shard is None else shard.all(done)):
             break
         action = act_fn(obs, w, gen)
-        out = env.step(state, action, env.sample_noise(m, gen))
+        out = env.step(state, action, local(shard, env.sample_noise(m_all, gen), env.noise_env_dim))
         live = (~done).to(torch.float32)
         ret = ret + live[:, None] * out.reward
         disc = disc + (live * gpow)[:, None] * out.reward

@@ -8,7 +8,9 @@ common/networks.py:10-157, envelope.py:33-77, gpi_ls_jax.py:33-128):
 - ``EnsembleDense``: ``members`` Dense layers stacked on a leading axis and
   computed as one batched GEMM (``torch.baddbmm``), in place of flax's
   ``nn.vmap`` over unshared params.
-- ``NatureCNN``: the DQN-Nature conv trunk with /255 input normalization.
+- ``NatureCNN``: the DQN-Nature conv trunk with /255 input normalization;
+  with ``members`` its convolutions are ``MemberConv2d`` (one ``conv2d``
+  a member, on stacked params) and its Dense an ``EnsembleDense``.
 - ``EnvelopeQNet``: Q(s, w) in R^{A x d} from the concatenation obs||w; with
   ``image_shape`` the flat obs are k stacked frames that go through a
   ``NatureCNN`` first.
@@ -48,6 +50,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import gather, local
 
 # std of a standard normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -286,27 +290,69 @@ def conv(in_channels: int, out_channels: int, kernel: int, stride: int, gen: tor
     return layer
 
 
+class MemberConv2d(nn.Module):
+    """``members`` flax ``VALID`` convolutions with unshared params, one
+    ``conv2d`` a member.  ``weight`` is (members, out, in, k, k) and ``bias``
+    (members, out); the input is (members, B, in, H, W), the output
+    (members, B, out, h, w).  Each member draws its kernel as ``conv`` draws
+    a ``Conv2d``'s, so a member drawn from a seed equals that seed's
+    one-member convolution.  (One ``conv2d(groups=members)`` on a (B,
+    members·in, H, W) view took two to three times the device time on an
+    H100 80GB HBM3 at 700 W: cuDNN transposes grouped NCHW convolutions.)"""
+
+    def __init__(self, members: int, in_channels: int, out_channels: int, kernel: int, stride: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.members, self.stride = members, stride
+        self.weight = nn.Parameter(torch.empty(members, out_channels, in_channels, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(members, out_channels))
+        with torch.no_grad():
+            _lecun_normal_(self.weight, in_channels * kernel * kernel, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([F.conv2d(x[m], self.weight[m], self.bias[m], self.stride) for m in range(self.members)])
+
+
 class NatureCNN(nn.Module):
     """DQN-Nature conv trunk with /255 input normalization (reference networks.py:51-88).
 
     Input (B, k, H, W), the k frames as channels; three ``VALID`` convs
     (84 -> 20 -> 9 -> 7 for 84x84 frames) and Dense(``features_dim``), each
     with ReLU.  The last conv's output is flattened in (H, W, C) order, as
-    flax flattens its NHWC activations, so a carried Dense kernel fits."""
+    flax flattens its NHWC activations, so a carried Dense kernel fits.
 
-    def __init__(self, image_shape: Sequence[int], features_dim: int = 512, gen: torch.Generator | None = None):
+    ``members=S`` stacks S trunks (the JAX package's ``jax.vmap`` over
+    unshared params): input (S, B, k, H, W), output (S, B, features_dim);
+    the convolutions are ``MemberConv2d`` and the Dense an ``EnsembleDense``.  Each member draws its params in the
+    one-trunk order, so ``stack_members`` gives each seed's one-trunk init."""
+
+    def __init__(
+        self,
+        image_shape: Sequence[int],
+        features_dim: int = 512,
+        gen: torch.Generator | None = None,
+        members: int | None = None,
+    ):
         super().__init__()
         k, h, w = image_shape
-        self.convs = nn.ModuleList([conv(k, 32, 8, 4, gen), conv(32, 64, 4, 2, gen), conv(64, 64, 3, 1, gen)])
-        for kernel, stride in ((8, 4), (4, 2), (3, 1)):
+        self.members = members
+        spec = ((k, 32, 8, 4), (32, 64, 4, 2), (64, 64, 3, 1))
+        if members is None:
+            self.convs = nn.ModuleList(conv(i, o, kk, st, gen) for i, o, kk, st in spec)
+        else:
+            self.convs = nn.ModuleList(MemberConv2d(members, i, o, kk, st, gen) for i, o, kk, st in spec)
+        for _, _, kernel, stride in spec:
             h, w = (h - kernel) // stride + 1, (w - kernel) // stride + 1
-        self.out = dense(64 * h * w, features_dim, gen)
+        if members is None:
+            self.out = dense(64 * h * w, features_dim, gen)
+        else:
+            self.out = EnsembleDense(members, 64 * h * w, features_dim, gen, linear_init=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32) / 255.0
         for layer in self.convs:
             x = torch.relu(layer(x))
-        return torch.relu(self.out(x.permute(0, 2, 3, 1).flatten(1)))
+        return torch.relu(self.out(x.movedim(-3, -1).flatten(-3)))
 
     def flax_layout(self) -> dict:
         return {**{f"Conv_{i}": c for i, c in enumerate(self.convs)}, "Dense_0": self.out}
@@ -322,9 +368,10 @@ class EnvelopeQNet(nn.Module):
 
     ``members=S`` stacks S Q-nets on a leading axis (the seed axis of the
     sweep's stacked trial): obs (S, M, O) and w (S, M, d) give (S, M, A, d),
-    one ``baddbmm`` a layer.  Each member draws its head as the one-seed
-    net does, so ``stack_members`` puts seed s's one-seed params in member s.
-    The NatureCNN trunk has no member axis."""
+    one ``baddbmm`` a layer, and one convolution a member a conv layer of
+    the stacked NatureCNN trunk.  Each member draws its trunk and head as the
+    one-seed net does, so ``stack_members`` puts seed s's one-seed params in
+    member s."""
 
     def __init__(
         self,
@@ -342,14 +389,10 @@ class EnvelopeQNet(nn.Module):
         self.reward_dim = reward_dim
         self.members = members
         self.image_shape = None if image_shape is None else tuple(image_shape)
-        if self.image_shape is not None and members is not None:
-            raise NotImplementedError(
-                "a NatureCNN trunk with a member axis is not ported (ROADMAP: the stacked NatureCNN trunk)"
-            )
         if self.image_shape is not None:
             if obs_dim != int(np.prod(self.image_shape)):
                 raise ValueError(f"obs_dim {obs_dim} is not the size of image_shape {self.image_shape}")
-            self.cnn = NatureCNN(self.image_shape, cnn_features, gen)
+            self.cnn = NatureCNN(self.image_shape, cnn_features, gen, members)
             obs_dim = cnn_features
         self.mlp = MLP(obs_dim + reward_dim, hidden, num_actions * reward_dim, gen, members=members, linear_init=True)
 
@@ -358,7 +401,8 @@ class EnvelopeQNet(nn.Module):
         float32 outputs; the NatureCNN trunk stays float32, as in the JAX package."""
         if self.image_shape is not None:
             lead = obs.shape[:-1]
-            obs = self.cnn(obs.reshape(-1, *self.image_shape)).reshape(*lead, -1)
+            frames = obs.reshape(-1, *self.image_shape) if self.members is None else obs.reshape(lead[0], -1, *self.image_shape)
+            obs = self.cnn(frames).reshape(*lead, -1)
         x = self.mlp(torch.cat([obs, w], dim=-1), dtype=dtype)
         return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
 
@@ -492,12 +536,15 @@ def stack_members(make, seeds, per_seed: int = 1) -> nn.Module:
 
 
 @torch.no_grad()
-def gather_members_(net: nn.Module, src, per: int = 1) -> None:
+def gather_members_(net: nn.Module, src, per: int = 1, shard=None) -> None:
     """In place, member p's params become member ``src[p]``'s (blocks of
-    ``per`` members each, as ``stack_members`` lays them out)."""
+    ``per`` members each, as ``stack_members`` lays them out).  With a
+    ``shard`` (``parallel.RowShard``) the net holds this rank's block of the
+    members: every rank's are all-gathered, indexed, and the block kept."""
     for p in net.parameters():
-        v = p.view(-1, per, *p.shape[1:])
-        v.copy_(v[torch.as_tensor(src, device=p.device)])
+        full = gather(shard, p)
+        v = full.view(-1, per, *p.shape[1:])[torch.as_tensor(src, device=p.device)]
+        p.copy_(local(shard, v.reshape(full.shape)))
 
 
 class MemberAdam:
@@ -584,7 +631,8 @@ def load_flax_params(module: nn.Module, flax_params) -> nn.Module:
     ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in), so
     those kernels are transposed, while ``EnsembleDense`` keeps flax's layout.
     A flax ``Conv`` kernel (kh, kw, in, out) becomes a torch ``Conv2d.weight``
-    (out, in, kh, kw).
+    (out, in, kh, kw), and a stacked one (S, kh, kw, in, out) a
+    ``MemberConv2d.weight`` (S, out, in, kh, kw).
     """
     _load(module, flax_params.get("params", flax_params), type(module).__name__)
     return module
@@ -601,6 +649,8 @@ def to_flax_params(module: nn.Module, grads: bool = False) -> dict:
         return {"kernel": np_(module.weight).T, "bias": np_(module.bias)}
     if isinstance(module, nn.Conv2d):  # torch (out, in, kh, kw) -> flax (kh, kw, in, out)
         return {"kernel": np_(module.weight).transpose(2, 3, 1, 0), "bias": np_(module.bias)}
+    if isinstance(module, MemberConv2d):  # (S, out, in, kh, kw) -> flax under vmap (S, kh, kw, in, out)
+        return {"kernel": np_(module.weight).transpose(0, 3, 4, 2, 1), "bias": np_(module.bias)}
     if isinstance(module, EnsembleDense):
         return {"kernel": np_(module.weight), "bias": np_(module.bias)}
     if isinstance(module, WeightNormDense):
@@ -690,6 +740,13 @@ def _load(module, tree, path: str) -> None:
         if kernel.ndim != 4 or kernel.transpose(3, 2, 0, 1).shape != tuple(module.weight.shape):
             raise ValueError(f"{path}.kernel: flax shape {kernel.shape} does not fit {tuple(module.weight.shape)}")
         _copy(module.weight, kernel.transpose(3, 2, 0, 1), f"{path}.kernel")
+        _copy(module.bias, tree["bias"], f"{path}.bias")
+        return
+    if isinstance(module, MemberConv2d):  # flax under vmap (S, kh, kw, in, out) -> (S, out, in, kh, kw)
+        kernel = np.array(tree["kernel"])
+        if kernel.ndim != 5 or kernel.transpose(0, 4, 3, 1, 2).shape != tuple(module.weight.shape):
+            raise ValueError(f"{path}.kernel: flax shape {kernel.shape} does not fit {tuple(module.weight.shape)}")
+        _copy(module.weight, kernel.transpose(0, 4, 3, 1, 2), f"{path}.kernel")
         _copy(module.bias, tree["bias"], f"{path}.bias")
         return
     if isinstance(module, EnsembleDense):

@@ -27,13 +27,13 @@ class Transition(NamedTuple):
     terminated: torch.Tensor  # float 0/1
 
 
-def _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device) -> Transition:
+def _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device, lead: tuple = ()) -> Transition:
     return Transition(
-        obs=torch.zeros((capacity, obs_dim), dtype=obs_dtype, device=device),
-        action=torch.zeros((capacity, *action_shape), dtype=action_dtype, device=device),
-        reward=torch.zeros((capacity, reward_dim), dtype=torch.float32, device=device),
-        next_obs=torch.zeros((capacity, obs_dim), dtype=obs_dtype, device=device),
-        terminated=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        obs=torch.zeros((*lead, capacity, obs_dim), dtype=obs_dtype, device=device),
+        action=torch.zeros((*lead, capacity, *action_shape), dtype=action_dtype, device=device),
+        reward=torch.zeros((*lead, capacity, reward_dim), dtype=torch.float32, device=device),
+        next_obs=torch.zeros((*lead, capacity, obs_dim), dtype=obs_dtype, device=device),
+        terminated=torch.zeros((*lead, capacity), dtype=torch.float32, device=device),
     )
 
 
@@ -137,8 +137,7 @@ class MemberReplayBuffer:
         obs_dtype=torch.float32,
         device="cuda",
     ) -> "MemberReplayBuffer":
-        data = _storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device)
-        return MemberReplayBuffer(Transition(*(x[None].repeat(members, *([1] * x.dim())) for x in data)))
+        return MemberReplayBuffer(_storage(capacity, obs_dim, action_shape, reward_dim, action_dtype, obs_dtype, device, (members,)))
 
     def add_batch(self, batch: Transition) -> "MemberReplayBuffer":
         """Insert (P, N, ...) transitions at the ring pointer, in place."""
@@ -150,8 +149,12 @@ class MemberReplayBuffer:
         self.size = min(self.size + n, self.capacity)
         return self
 
-    def sample(self, gen: torch.Generator, batch_size: int) -> Transition:
-        """batch_size uniform rows (with replacement) from each member's ring: (P, batch_size, ...)."""
-        idx = torch.randint(0, max(self.size, 1), (self.members, batch_size), generator=gen, device=gen.device)
+    def sample(self, gen: torch.Generator, batch_size: int, shard=None) -> Transition:
+        """batch_size uniform rows (with replacement) from each member's ring:
+        (P, batch_size, ...).  The members sharded over ranks (``shard``), the
+        indices are drawn for all members and each rank keeps its own."""
+        n = self.members if shard is None else self.members * shard.world
+        idx = torch.randint(0, max(self.size, 1), (n, batch_size), generator=gen, device=gen.device)
+        idx = idx if shard is None else shard.local(idx)
         rows = torch.arange(self.members, device=idx.device)[:, None]
         return Transition(*(x[rows, idx] for x in self.data))

@@ -168,20 +168,24 @@ def _recording(monkeypatch, calls):
 
 
 def test_trial_dispatch(monkeypatch, tmp_path):
-    """Envelope with flat obs goes stacked by default; ``--no-vmap-seeds``, an
-    image trunk and CAPQL (which also has ``train_segment`` and
-    ``_eval_front``) go sequential by rule."""
+    """Envelope goes stacked by default, with flat obs and with an image
+    trunk (the stacked NatureCNN); ``--no-vmap-seeds`` and CAPQL (which also
+    has ``train_segment`` and ``_eval_front``) go sequential by rule."""
     calls = []
     _recording(monkeypatch, calls)
     assert sweep.run_trial("envelope", "deep-sea-treasure-v0", [0.0, -50.0], {}, 2, 100, device="cpu") == (1.0, [1.0, 1.0])
     assert calls == [("stacked", "envelope")]
-    for algo, overrides, vmap in (("envelope", {}, False), ("envelope", {"image_shape": (4, 84, 84)}, True),
-                                  ("capql", {}, True)):
+    calls.clear()
+    pixel = {"image_shape": (4, 84, 84)}
+    assert sweep.run_trial("envelope", "deep-sea-treasure-pixel-stack-v0", [0.0, -50.0], pixel, 2, 100,
+                           device="cpu") == (1.0, [1.0, 1.0])
+    assert calls == [("stacked", "envelope")] and sweep.stacks_seeds("envelope")
+    for algo, overrides, vmap in (("envelope", {}, False), ("capql", {}, True)):
         calls.clear()
         with pytest.raises(StopIteration):
             sweep.run_trial(algo, "deep-sea-treasure-v0", [0.0, -50.0], overrides, 2, 100, device="cpu", vmap_seeds=vmap)
         assert calls == [("sequential", algo)]
-    assert sweep.stacks_seeds("envelope", {"num_envs": 4}) and not sweep.stacks_seeds("capql", {})
+    assert sweep.stacks_seeds("envelope") and not sweep.stacks_seeds("capql")
     calls.clear()
     args = ["--algo", "envelope", "--env-id", "deep-sea-treasure-v0", "--ref-point", "0", "-50", "--space",
             json.dumps({"learning_rate": {"values": [1e-3]}}), "--num-trials", "1", "--num-seeds", "2",

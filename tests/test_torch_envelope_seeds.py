@@ -9,7 +9,11 @@ matmuls sum in another order; ``MemberAdam`` rounds its update as optax
 does, ``torch.optim.Adam`` in another order); the bf16 forward at the bf16
 tests' 2e-2 / 1e-2; a one-member stack against the one-seed loop over 8
 iterations atol 1e-5 on params and losses, the stored transitions exactly;
-evaluated fronts atol 1e-5.
+evaluated fronts atol 1e-5.  The stacked NatureCNN trunk (pixel obs at a
+small image, (2, 36, 36)): the forward against ``jax.vmap`` of the JAX
+pixel Q-net on carried params at atol 1e-5 / rtol 1e-5 (float32
+convolutions summed in another order), against S one-seed port forwards at
+atol 1e-6.
 """
 
 import jax
@@ -22,12 +26,13 @@ from morl_baselines_tpu.agents import Envelope as JEnvelope
 from morl_baselines_tpu.agents import EnvelopeConfig as JEnvelopeConfig
 from morl_baselines_tpu.core.weights import random_weights as j_random_weights
 from morl_baselines_tpu.envs import make as jmake
+from morl_baselines_tpu.models.networks import EnvelopeQNet as JEnvelopeQNet
 from morl_baselines_tpu.replay import Transition as JTransition
 from morl_baselines_torch.agents import Envelope, EnvelopeConfig
 from morl_baselines_torch.agents.envelope import EnvelopeSeedsState
 from morl_baselines_torch.core.weights import equally_spaced_weights
 from morl_baselines_torch.envs import make
-from morl_baselines_torch.models import load_flax_params
+from morl_baselines_torch.models import EnvelopeQNet, load_flax_params, stack_members, to_flax_params
 from morl_baselines_torch.replay import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer, Transition
 
 torch.set_num_threads(1)
@@ -106,9 +111,16 @@ def test_member_init_equals_one_seed():
             for lin, ens, tgt in zip(one.mlp.layers, state.ts.net.mlp.layers, state.ts.target_net.mlp.layers):
                 assert torch.equal(ens.weight[s], lin.weight.T) and torch.equal(ens.bias[s], lin.bias)
                 assert torch.equal(tgt.weight[s], lin.weight.T)
+    # the pixel net: the NatureCNN trunk's stacked convolutions and Dense too
     pixel = Envelope(make("deep-sea-treasure-pixel-stack-v0"), EnvelopeConfig(**SMALL, image_shape=(4, 84, 84)), device="cpu")
-    with pytest.raises(NotImplementedError, match="stacked NatureCNN"):
-        pixel.init_state_seeds([0, 1])
+    state = pixel.init_state_seeds([0, 1])
+    for s, seed in enumerate([0, 1]):
+        one = pixel.init_state(seed).ts.net
+        for conv, member in zip(one.cnn.convs, state.ts.net.cnn.convs):
+            assert torch.equal(member.weight[s], conv.weight) and torch.equal(member.bias[s], conv.bias)
+        assert torch.equal(state.ts.net.cnn.out.weight[s], one.cnn.out.weight.T)
+        for lin, ens in zip(one.mlp.layers, state.ts.net.mlp.layers):
+            assert torch.equal(ens.weight[s], lin.weight.T) and torch.equal(ens.bias[s], lin.bias)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -277,3 +289,65 @@ def test_eval_front_seeds_equals_one_seed():
         alone = agent._eval_front(_member_net(agent, state.ts.net, s), weights, 1, 60)
         np.testing.assert_allclose(fronts[s].numpy(), alone.numpy(), atol=ATOL)
     assert len({tuple(f.round(4).ravel()) for f in fronts.numpy()}) > 1, "the seeds must learn different fronts"
+
+
+# ---------------------------------------------------------------- the stacked NatureCNN trunk
+
+IMAGE = (2, 36, 36)
+IMAGE_OBS = int(np.prod(IMAGE))
+
+
+def _pixel_inputs(seed, members, rows):
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, 256, size=(members, rows, IMAGE_OBS)).astype(np.float32)
+    w = rng.dirichlet([1.0, 1.0], size=(members, rows)).astype(np.float32)
+    return obs, w
+
+
+def test_stacked_pixel_forward_matches_jax_vmap():
+    """``jax.vmap`` of the JAX pixel ``EnvelopeQNet`` over 2 keys, its params
+    carried into ``EnvelopeQNet(image_shape=..., members=2)`` (stacked Conv
+    kernels (S, kh, kw, in, out)), gives the port's stacked forward; the
+    params carry back bitwise through ``to_flax_params``."""
+    jnet = JEnvelopeQNet(num_actions=4, reward_dim=2, hidden=(32, 32), image_shape=IMAGE, cnn_features=64)
+    keys = jax.random.split(jax.random.key(5), 2)
+    params = jax.vmap(lambda k: jnet.init(k, jnp.zeros((1, IMAGE_OBS)), jnp.zeros((1, 2))))(keys)
+    obs, w = _pixel_inputs(6, 2, 5)
+    want = np.asarray(jax.vmap(jnet.apply)(params, jnp.asarray(obs), jnp.asarray(w)))
+    net = load_flax_params(EnvelopeQNet(IMAGE_OBS, 4, 2, (32, 32), image_shape=IMAGE, cnn_features=64, members=2),
+                           jax.tree.map(np.asarray, params))
+    assert tuple(net.cnn.convs[0].weight.shape) == (2, 32, 2, 8, 8)
+    got = net(torch.as_tensor(obs), torch.as_tensor(w)).detach().numpy()
+    assert got.shape == (2, 5, 4, 2)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    back = to_flax_params(net)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params["params"])):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_stacked_pixel_forward_equals_one_seed_forwards():
+    """Member s of a stack built by ``stack_members`` from seeds computes what
+    a one-seed pixel Q-net of seed s computes, on its own rows."""
+    seeds = [2, 9, 4]
+    make_net = lambda members, gen: EnvelopeQNet(IMAGE_OBS, 4, 2, (32, 32), gen, IMAGE, 64, members)  # noqa: E731
+    stacked = stack_members(make_net, seeds)
+    obs, w = _pixel_inputs(7, len(seeds), 6)
+    got = stacked(torch.as_tensor(obs), torch.as_tensor(w)).detach()
+    for s, seed in enumerate(seeds):
+        one = make_net(None, torch.Generator().manual_seed(seed))
+        want = one(torch.as_tensor(obs[s]), torch.as_tensor(w[s])).detach()
+        np.testing.assert_allclose(got[s].numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_stacked_pixel_train_segment_runs():
+    """A tiny stacked pixel-DST ``train_segment`` (2 seeds x 4 envs under the
+    mario wrapper stack, past ``learning_starts``) and its stacked evaluation."""
+    cfg = EnvelopeConfig(num_envs=4, buffer_size=64, batch_size=8, hidden=(32, 32), learning_starts=8,
+                         image_shape=(4, 84, 84), num_sample_w=2)
+    agent = Envelope(make("deep-sea-treasure-pixel-stack-v0"), cfg, device="cpu")
+    state = agent.train_segment(agent.init_state_seeds([0, 1]), 5)
+    assert state.global_step == 20 and state.buffer.size == 20 and state.obs.shape == (2, 4, 4 * 84 * 84)
+    assert bool(torch.isfinite(state.loss).all())
+    assert not torch.equal(state.buffer.data.obs[0, :20], state.buffer.data.obs[1, :20])
+    fronts = agent._eval_front(state.ts.net, torch.tensor([[0.5, 0.5], [1.0, 0.0]]), 1, 30)
+    assert fronts.shape == (2, 2, 2) and bool(torch.isfinite(fronts).all())

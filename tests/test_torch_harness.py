@@ -2,15 +2,21 @@
 
 ``seed_everything`` / ``log_episode_info`` (evaluation), ``reset_wandb_env``
 (logging), ``PhaseTimer`` / ``trace`` (profiling), ``non_dominated_count`` and
-``filter_convex_dominated`` (core), ``ReplayBuffer.add`` / ``get_all_data``.
+``filter_convex_dominated`` (core), ``ReplayBuffer.add`` / ``get_all_data``;
+``MetricLogger``'s wandb sink (a stub ``wandb`` module records its calls) and
+the positional order of ``MetricLogger`` and ``MORLD.train``.
 Inputs are made with numpy from a seed and handed to both packages.  The
 episode metrics are means in numpy in both packages and equal exactly; the
 scalarized ones are float32 sums, held at rtol 1e-6.  Fronts and buffer rows
 are compared exactly.
 """
 
+import inspect
+import json
 import os
+import sys
 import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +30,10 @@ from morl_baselines_tpu.envs.vector import EpisodeStats as JEpisodeStats
 from morl_baselines_tpu.evaluation import log_episode_info as j_log_episode_info
 from morl_baselines_tpu.replay import ReplayBuffer as JReplayBuffer
 from morl_baselines_tpu.replay import Transition as JTransition
+from morl_baselines_tpu.agents.morld import MORLD as JMORLD
+from morl_baselines_tpu.utils.logging import MetricLogger as JMetricLogger
 from morl_baselines_tpu.utils.profiling import PhaseTimer as JPhaseTimer
+from morl_baselines_torch.agents.morld import MORLD
 from morl_baselines_torch.core import filter_convex_dominated, non_dominated_count
 from morl_baselines_torch.core.scalarization import weighted_sum
 from morl_baselines_torch.envs.vector import EpisodeStats
@@ -90,6 +99,48 @@ def test_log_episode_info_mirror(tmp_path):
     assert metrics["metrics/episode_return_obj_1"] == pytest.approx(4.0)
     assert (tmp_path / "log.jsonl").read_text().count("global_step") == 1
     assert log_episode_info(stats.update(r, torch.zeros(3, dtype=torch.bool), 0.5)[1], weighted_sum, None, 0) == {}
+
+
+def test_wandb_sink_makes_the_four_calls(monkeypatch, tmp_path):
+    """``use_wandb`` calls ``wandb.init(project=, name=experiment, config=)``,
+    ``define_metric("*", step_metric="global_step")``, ``log(payload,
+    step=global_step)`` and ``finish()`` in ``close``, beside the JSONL sink."""
+    calls = []
+    stub = types.ModuleType("wandb")
+    stub.init = lambda **kw: calls.append(("init", kw))
+    stub.define_metric = lambda *a, **kw: calls.append(("define_metric", a, kw))
+    stub.log = lambda payload, step: calls.append(("log", dict(payload), step))
+    stub.finish = lambda: calls.append(("finish",))
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    logger = MetricLogger("proj", "exp", tmp_path / "log.jsonl", True, {"lr": 0.1}, stdout_every=100)
+    logger.log({"eval/hypervolume": torch.tensor(2.5)}, 64)
+    logger.close()
+    assert calls == [
+        ("init", {"project": "proj", "name": "exp", "config": {"lr": 0.1}}),
+        ("define_metric", ("*",), {"step_metric": "global_step"}),
+        ("log", {"eval/hypervolume": 2.5, "global_step": 64}, 64),
+        ("finish",),
+    ]
+    assert json.loads((tmp_path / "log.jsonl").read_text()) == {"eval/hypervolume": 2.5, "global_step": 64}
+
+
+def test_wandb_missing_falls_back(monkeypatch, tmp_path, capsys):
+    """Without wandb (``import wandb`` raises ``ImportError``) the logger says
+    so on stderr, as the JAX package's does, and its JSONL sink still works."""
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    logger = MetricLogger(jsonl_path=tmp_path / "log.jsonl", use_wandb=True, stdout_every=100)
+    logger.log({"x": 1.0}, 3)
+    logger.close()
+    assert "[logger] wandb not available; falling back to stdout/jsonl" in capsys.readouterr().err
+    assert json.loads((tmp_path / "log.jsonl").read_text()) == {"x": 1.0, "global_step": 3}
+
+
+def test_positional_order_matches_jax():
+    """``MetricLogger`` and ``MORLD.train`` take the JAX package's parameter
+    names in the JAX order, so a positional call means the same in both."""
+    for port, jax_fn in ((MetricLogger.__init__, JMetricLogger.__init__), (MORLD.train, JMORLD.train)):
+        assert list(inspect.signature(port).parameters) == list(inspect.signature(jax_fn).parameters)
+    assert MetricLogger("p").project == "p" and MetricLogger("p").experiment == "run"
 
 
 def test_reset_wandb_env(monkeypatch):
