@@ -122,7 +122,11 @@ beside the one-seed pixel iteration, the peak memory, member s's Q-values
 against its one-seed net, the trunk's per-member convolutions beside one
 grouped convolution a layer, the 4 x 32 evaluation episodes as one batch, each front
 scored on the card), then one pixel trial that the sweep's dispatch sends
-down the stacked path.
+down the stacked path.  Then slice 12: the ``parity`` path runs the protocol
+runner ``cli.parity.main`` as a user does, on ``pql_dst`` and
+``capql_hopper`` at the JAX runner's smoke budgets, seed 0, into a temporary
+directory; it fails on an ``exception`` record or a missing reference
+metric, logs each wall time and scores each front of the summary on the card.
 MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
@@ -141,6 +145,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,7 +190,7 @@ from morl_baselines_torch.agents import (
 )
 from morl_baselines_torch.agents.base import state_tree
 from morl_baselines_torch.agents.ipro import make_linear_u
-from morl_baselines_torch.cli import experiments, launch, sweep
+from morl_baselines_torch.cli import experiments, launch, parity, sweep
 from morl_baselines_torch.core.indicators import _hv_wfg
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import VectorMOEnv, fishwood_utility, lander_heuristic, make
@@ -2209,6 +2214,39 @@ def phase_mujoco(smi: str) -> dict:
     return out
 
 
+PARITY_CONFIGS = ("pql_dst", "capql_hopper")
+PARITY_METRICS = ("eval/hypervolume", "eval/eum", "eval/cardinality")
+
+
+def phase_parity(smi: str) -> dict:
+    """``cli.parity.main`` as a user runs it, on ``PARITY_CONFIGS`` at the
+    JAX runner's smoke budgets, seed 0, into a temporary directory: no
+    ``exception`` record, the reference metrics in every curve, each front
+    of the summary scored on the card.  Returns each config's wall time."""
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = parity.main([*PARITY_CONFIGS, "--seeds=0", "--smoke", "--out", tmp])
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(Path(tmp) / "parity_summary.jsonl")]
+        if rc != 0 or [r["config"] for r in recs] != list(PARITY_CONFIGS) or any("exception" in r for r in recs):
+            raise AssertionError(f"the runner returned {rc}: {[(r['config'], r.get('exception')) for r in recs]}")
+        for r in recs:
+            name = r["config"]
+            last = [json.loads(line) for line in open(Path(tmp) / f"parity_{name}_seed0.jsonl")][-1]
+            missing = [m for m in PARITY_METRICS if m not in last or m not in r["metrics"]]
+            if missing or r["device"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"{name}: reference metrics {missing} missing, or device {r['device']}")
+            front = np.asarray(r["front"], dtype=np.float32)
+            launched = score_on_card(front, r["metrics"], parity.spec(name, 0, smoke=True).train["ref_point"])
+            walls[name] = r["wall"]
+            log(f"[parity] {name} seed 0 --smoke: {r['wall']} s, global_step {r['global_step']}, front of {len(front)} "
+                f"scored on the card ({launched} launches); " + ", ".join(f"{m}={r['metrics'][m]:.6g}" for m in PARITY_METRICS)
+                + f" [{smi}]")
+    log(f"[parity] cli.parity.main over {len(recs)} configs in {wall:.1f} s")
+    return walls
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -2295,6 +2333,7 @@ def main() -> int:
         ),
         "mesh": lambda: timings.update(mesh=phase_mesh(smi)),
         "envelope_pixel_seeds": lambda: timings.update(pixel_seeds=phase_envelope_pixel_seeds(smi, timings["pixel_one_seed"])),
+        "parity": lambda: timings.update(parity=phase_parity(smi)),
     }
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
     no_front = {"moql", "eupg"}

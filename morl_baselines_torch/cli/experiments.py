@@ -52,11 +52,11 @@ ALGOS: Dict[str, Any] = {
 __all__ = ["ALGOS", "ENVS_WITH_KNOWN_PARETO_FRONT", "StoreDict", "make_env"]
 
 
-def make_env(env_id: str, device) -> MOEnv:
-    """``make(env_id)``; the planar envs keep their constants on ``device``."""
+def make_env(env_id: str, device, **kwargs) -> MOEnv:
+    """``make(env_id, **kwargs)``; the planar envs keep their constants on ``device``."""
     if ENV_REGISTRY.get(env_id) in (MOHopperJX, MOHalfCheetahJX):
-        return make(env_id, device=device)
-    return make(env_id)
+        return make(env_id, device=device, **kwargs)
+    return make(env_id, **kwargs)
 
 
 class StoreDict(argparse.Action):
