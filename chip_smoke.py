@@ -127,7 +127,16 @@ runner ``cli.parity.main`` as a user does, on ``pql_dst`` and
 ``capql_hopper`` at the JAX runner's smoke budgets, seed 0, into a temporary
 directory; it fails on an ``exception`` record or a missing reference
 metric, logs each wall time and scores each front of the summary on the card.
-MO-Q-Learning and EUPG are single-policy and score no front, in the JAX
+Then slice 13: the ``bench`` path runs the port's throughput bench
+``cli.bench.main([])`` as a user does: its six lines in ``bench.py``'s order
+with finite positive values, the Pareto line's kernel bitwise equal to the
+(N, N) torch mask at N=8192 before both are timed (``python3 chip_smoke.py
+--bench-profile`` runs this path alone and profiles one more call of each
+timed function on a fresh state: launches, device busy share); the
+``bench_probes`` path runs the four breakdowns
+(``profile_gpils``, ``profile_population``, ``bench_gpils_ab``,
+``probe_planar``) at their small sizes and checks their lines.
+MO-Q-Learning, EUPG and the breakdowns score no front, in the JAX
 package either, so their paths launch no kernel.  Every path is driven with the kernel's launch count
 set to 0 just before it and read just after.  Every phase raises on a mismatch; the
 script exits non-zero without a result when CUDA is absent.  The
@@ -137,9 +146,11 @@ second-to-last line is a JSON record of the kernels, the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import statistics
@@ -190,7 +201,17 @@ from morl_baselines_torch.agents import (
 )
 from morl_baselines_torch.agents.base import state_tree
 from morl_baselines_torch.agents.ipro import make_linear_u
-from morl_baselines_torch.cli import experiments, launch, parity, sweep
+from morl_baselines_torch.cli import (
+    bench,
+    bench_gpils_ab,
+    experiments,
+    launch,
+    parity,
+    probe_planar,
+    profile_gpils,
+    profile_population,
+    sweep,
+)
 from morl_baselines_torch.core.indicators import _hv_wfg
 from morl_baselines_torch.core import DeviceParetoFront, equally_spaced_weights, filter_pareto_dominated
 from morl_baselines_torch.envs import VectorMOEnv, fishwood_utility, lander_heuristic, make
@@ -2247,6 +2268,112 @@ def phase_parity(smi: str) -> dict:
     return walls
 
 
+# bench.py's six lines, in its order, the headline last (the Pareto line at the accelerator's N=8192)
+BENCH_METRICS = (
+    "gpils_minecart_env_steps_per_sec_per_chip",
+    "gpils_cont_hopper_env_steps_per_sec_per_chip",
+    "pgmorl_halfcheetah_env_steps_per_sec_per_chip",
+    "morld_halfcheetah_env_steps_per_sec_per_chip",
+    "pareto_nd_mask_n8192_rows_per_sec",
+    "envelope_minecart_env_steps_per_sec_per_chip",
+)
+# the timed functions of cli.bench, in the order it times them (the Pareto line times two)
+BENCH_CALLS = ("gpils_minecart", "gpils_cont_hopper", "pgmorl_halfcheetah", "morld_halfcheetah",
+               "pareto_nd kernel", "pareto (N, N) torch mask", "envelope_minecart")
+
+
+def _captured(fn, *args):
+    """(fn's return value, the lines it printed to stdout); the lines are logged too."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = fn(*args)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(line)
+    return ret, lines
+
+
+def _records(lines: list) -> list:
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def phase_bench(smi: str, profile: bool = False) -> dict:
+    """``cli.bench.main([])`` as a user runs it: the six lines in bench.py's
+    order with finite positive values; the Pareto line asserts the kernel
+    bitwise against the (N, N) torch mask before it times both.  With
+    ``profile`` (``python3 chip_smoke.py --bench-profile``), beside each timed
+    function (its warm-up and 3 timed calls) one more call on a fresh state is
+    profiled: its launches, and its device busy time over the median timed
+    call (the profiler's tracing about doubles the call's own wall time).  The
+    bench's own lines carry no profile."""
+    profiles = []
+    timed = bench._time
+
+    def timed_and_profiled(run, fresh, device, reps=3):
+        dt = timed(run, fresh, device, reps)
+        state = fresh()
+        what = BENCH_CALLS[len(profiles)] if len(profiles) < len(BENCH_CALLS) else "?"
+        # the kernel's calls are short: trace the host too, or the trace may miss it
+        prof = profile_window(lambda: run(state), f"bench {what}, one call", cpu=what.startswith("pareto"))
+        profiles.append(prof and dict(prof, median_ms=1e3 * dt, busy_share=prof["busy_ms"] / (1e3 * dt)))
+        return dt
+
+    before = non_dominated_mask_cuda.launches
+    if profile:
+        bench._time = timed_and_profiled
+    t0 = time.perf_counter()
+    try:
+        rc, lines = _captured(bench.main, [])
+    finally:
+        bench._time = timed
+    wall = time.perf_counter() - t0
+    recs = _records(lines)
+    if rc != 0 or tuple(r["metric"] for r in recs) != BENCH_METRICS:
+        raise AssertionError(f"cli.bench.main returned {rc}, lines {[r['metric'] for r in recs]}")
+    if not all(math.isfinite(r["value"]) and r["value"] > 0 and math.isfinite(r["vs_baseline"]) for r in recs):
+        raise AssertionError(f"non-finite or non-positive bench values {recs}")
+    launched = non_dominated_mask_cuda.launches - before
+    # the Pareto line: 1 bitwise check, 1 warm-up and 3 timed kernel calls (and 1 profiled)
+    if launched != 5 + profile or len(profiles) != (len(BENCH_CALLS) if profile else 0):
+        raise AssertionError(f"the Pareto line launched the kernel {launched} times, {len(profiles)} calls profiled")
+    per_call = dict(zip(BENCH_CALLS, profiles))
+    for what, prof in per_call.items():
+        if prof:
+            log(f"[bench] {what}: one call {prof['launches']} launches, device busy {prof['busy_ms']:.2f} ms = "
+                f"{100 * prof['busy_share']:.1f}% of the median timed call's {prof['median_ms']:.2f} ms "
+                f"({prof['wall_ms']:.2f} ms under the profiler)")
+    log(f"[bench] cli.bench.main in {wall:.1f} s; the Pareto line's kernel bitwise equal to the (N, N) torch mask "
+        f"({launched} launches) [{smi}]")
+    return dict(lines=recs, profiles=per_call, wall=wall)
+
+
+def phase_bench_probes(smi: str) -> dict:
+    """The four breakdowns of the bench at their small sizes (``profile_gpils
+    --small``, ``profile_population --small``, ``bench_gpils_ab --small``,
+    ``probe_planar`` at 2048 envs): their lines under the JAX scripts' keys,
+    finite, and both 9x9 eliminations matching ``torch.linalg.solve``."""
+    want = {
+        profile_gpils: (["--small"], 9),
+        profile_population: (["--small"], 2),
+        bench_gpils_ab: (["--small"], 2),
+        probe_planar: (["2048"], 6),
+    }
+    walls = {}
+    for module, (argv, n) in want.items():
+        name = module.__name__.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        rc, lines = _captured(module.main, argv)
+        walls[name] = time.perf_counter() - t0
+        recs = _records(lines)
+        numbers = [v for r in recs for v in r.values() if isinstance(v, float)]
+        if rc != 0 or len(recs) != n or not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"{name} {argv}: rc {rc}, {len(recs)} lines of {n}, or non-finite numbers: {recs}")
+        if name == "probe_planar" and [r["matches_solve"] for r in recs if "matches_solve" in r] != [True, True]:
+            raise AssertionError(f"probe_planar: an elimination disagrees with torch.linalg.solve: {recs}")
+        log(f"[bench_probes] {name} {' '.join(argv)}: {len(recs)} lines in {walls[name]:.1f} s [{smi}]")
+    return walls
+
+
 def add_plain(front: DeviceParetoFront, cand: torch.Tensor) -> DeviceParetoFront:
     """``DeviceParetoFront.add`` (core/archive.py) with the plain mask in place of the kernel."""
     all_vals = torch.cat([front.values, cand], dim=0)
@@ -2285,13 +2412,20 @@ def phase_archive_add(smi: str, n: int = 131072, d: int = 3) -> dict:
     return res
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--bench-profile"]):
+        print("usage: python3 chip_smoke.py [--bench-profile]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     kind = torch.cuda.get_device_name(0)
     smi = phase_environment()
     phase_build()
+    if argv:  # the bench path alone, each workload's call profiled
+        print(json.dumps({"bench_profiles": phase_bench(smi, profile=True)["profiles"]}))
+        return 0
     timed = phase_kernel_vs_plain(smi)
     archive = phase_archive_add(smi)
     planar = phase_planar(smi)
@@ -2334,9 +2468,12 @@ def main() -> int:
         "mesh": lambda: timings.update(mesh=phase_mesh(smi)),
         "envelope_pixel_seeds": lambda: timings.update(pixel_seeds=phase_envelope_pixel_seeds(smi, timings["pixel_one_seed"])),
         "parity": lambda: timings.update(parity=phase_parity(smi)),
+        "bench": lambda: timings.update(bench=phase_bench(smi)),
+        "bench_probes": lambda: timings.update(bench_probes=phase_bench_probes(smi)),
     }
-    # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either
-    no_front = {"moql", "eupg"}
+    # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either;
+    # nor do the bench's breakdowns, as the JAX scripts do not
+    no_front = {"moql", "eupg", "bench_probes"}
     launches_by_path = {}
     for name, drive in paths.items():
         non_dominated_mask_cuda.launches = 0
