@@ -127,6 +127,11 @@ runner ``cli.parity.main`` as a user does, on ``pql_dst`` and
 ``capql_hopper`` at the JAX runner's smoke budgets, seed 0, into a temporary
 directory; it fails on an ``exception`` record or a missing reference
 metric, logs each wall time and scores each front of the summary on the card.
+After it, the ``gpils_tune`` path runs the GPI-LS minecart tuning sweep
+``cli.gpils_minecart_tune.main`` as a user does, its six variants at full
+width and two outer iterations of 1280 steps, into a temporary directory; it
+fails on an ``exception`` record, a missing reference metric or more sale rows
+than buffer rows, and scores each variant's CCS on the card.
 Then slice 13: the ``bench`` path runs the port's throughput bench
 ``cli.bench.main([])`` as a user does: its six lines in ``bench.py``'s order
 with finite positive values, the Pareto line's kernel bitwise equal to the
@@ -205,6 +210,7 @@ from morl_baselines_torch.cli import (
     bench,
     bench_gpils_ab,
     experiments,
+    gpils_minecart_tune,
     launch,
     parity,
     probe_planar,
@@ -2268,6 +2274,52 @@ def phase_parity(smi: str) -> dict:
     return walls
 
 
+# the tuning sweep's six variants at full width, cut to 2 outer iterations of 1280 steps (the gradient
+# updates start in the second, at learning_starts 2048).  On one H100 80GB HBM3 at 700 W the six took
+# 498.0 s at --total 20480 (2 iterations of 10,000 steps; 369.7 s of it variant F's 72k updates), and
+# 135.6 s at --total 4096 --timesteps-per-iter 2048 (74.3 s of it F's 8k updates) on a slower host
+TUNE_VARIANTS = ("A", "B", "C", "D", "E", "F")
+TUNE_TOTAL = 2560
+TUNE_STEPS_PER_ITER = 1280
+TUNE_METRICS = ("eval/hypervolume", "eval/eum", "eval/igd", "eval/mul", "eval/cardinality")
+
+
+def phase_gpils_tune(smi: str) -> dict:
+    """``cli.gpils_minecart_tune.main`` as a user runs it, on ``TUNE_VARIANTS``
+    at full width, ``--total TUNE_TOTAL --timesteps-per-iter
+    TUNE_STEPS_PER_ITER``, into a temporary directory: no
+    ``exception`` record, the reference metrics in every record and curve,
+    ``sale_rows <= buffer_size``, each variant's CCS scored on the card.
+    Returns each variant's wall time."""
+    walls = {}
+    ref = np.asarray(gpils_minecart_tune.REF_POINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        argv = [*TUNE_VARIANTS, "--total", str(TUNE_TOTAL), "--timesteps-per-iter", str(TUNE_STEPS_PER_ITER), "--out", tmp]
+        rc, _ = _captured(gpils_minecart_tune.main, argv)
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(Path(tmp) / "gpils_minecart_tune.jsonl")]
+        if rc != 0 or [r["variant"] for r in recs] != list(TUNE_VARIANTS) or any("exception" in r for r in recs):
+            raise AssertionError(f"the tune returned {rc}: {[(r['variant'], r.get('exception')) for r in recs]}")
+        for r in recs:
+            name = r["variant"]
+            last = [json.loads(line) for line in open(Path(tmp) / f"gpils_minecart_tune_{name}_seed0.jsonl")][-1]
+            missing = [m for m in TUNE_METRICS if m not in last or m not in r["metrics"]]
+            if missing or r["device"] != torch.cuda.get_device_name(0) or r["total"] != TUNE_TOTAL:
+                raise AssertionError(f"{name}: reference metrics {missing} missing, device {r['device']}, total {r['total']}")
+            if not 0 <= r["sale_rows"] <= r["buffer_size"] <= TUNE_TOTAL or r["buffer_size"] == 0:
+                raise AssertionError(f"{name}: {r['sale_rows']} sale rows in a buffer of {r['buffer_size']}")
+            ccs = np.asarray(r["ccs"], dtype=np.float32)
+            host = multi_policy_metrics(ccs, ref, equally_spaced_weights(3, 32), None)
+            launched = score_on_card(ccs, host, ref)
+            walls[name] = r["wall"]
+            log(f"[gpils_tune] {name} seed 0 --total {TUNE_TOTAL}: {r['wall']} s, buffer {r['buffer_size']} rows of which "
+                f"{r['sale_rows']} sales, CCS of {len(ccs)} scored on the card ({launched} launches); "
+                + ", ".join(f"{m}={r['metrics'][m]:.6g}" for m in TUNE_METRICS) + f" [{smi}]")
+    log(f"[gpils_tune] cli.gpils_minecart_tune.main over {len(recs)} variants in {wall:.1f} s")
+    return walls
+
+
 # bench.py's six lines, in its order, the headline last (the Pareto line at the accelerator's N=8192)
 BENCH_METRICS = (
     "gpils_minecart_env_steps_per_sec_per_chip",
@@ -2468,6 +2520,7 @@ def main(argv: list | None = None) -> int:
         "mesh": lambda: timings.update(mesh=phase_mesh(smi)),
         "envelope_pixel_seeds": lambda: timings.update(pixel_seeds=phase_envelope_pixel_seeds(smi, timings["pixel_one_seed"])),
         "parity": lambda: timings.update(parity=phase_parity(smi)),
+        "gpils_tune": lambda: timings.update(gpils_tune=phase_gpils_tune(smi)),
         "bench": lambda: timings.update(bench=phase_bench(smi)),
         "bench_probes": lambda: timings.update(bench_probes=phase_bench_probes(smi)),
     }

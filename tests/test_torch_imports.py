@@ -90,7 +90,8 @@ def test_port_imports_no_jax():
     later |= {f"morl_baselines_torch.envs.{m}" for m in ("lunar_lander", "four_room", "resource_gathering",
                                                           "breakable_bottles", "highway", "pixel", "wrappers")}
     later |= {f"morl_baselines_torch.cli.{m}" for m in ("experiments", "launch", "sweep", "parity", "bench", "profile_gpils",
-                                                         "profile_population", "bench_gpils_ab", "probe_planar")}
+                                                         "profile_population", "bench_gpils_ab", "probe_planar",
+                                                         "gpils_minecart_tune")}
     later |= {"morl_baselines_torch.utils.native", "morl_baselines_torch.utils.profiling",
               "morl_baselines_torch.replay.accrued", "morl_baselines_torch.replay.diverse"}
     assert later <= set(got["names"]), later - set(got["names"])

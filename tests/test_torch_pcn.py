@@ -9,8 +9,11 @@ the scores, which reach 1e6); ``sample_steps`` given the JAX draw's (e, t)
 1e-5; ``PCNModel`` from one flax tree 1e-5; one ``update_model`` step on the
 JAX sample 1e-5 on the loss and gradients, 1e-6 on the params after Adam; a
 greedy ``collect_episodes`` on deep-sea-treasure exact on the lengths, 1e-5
-on the returns; ``choose_commands`` for PCN and LCN given the same integer
-seed 1e-6.  Then the smoke mirror of tests/test_agents_multi.py::test_pcn_and_lcn.
+on the returns; on minecart-deterministic, JAX seed 0's ``train`` warm-up
+(greedy on 8 commands, then all 32 sampled given the JAX Gumbel noise) exact
+on the lengths and actions, 1e-4 on the returns; ``choose_commands`` for
+PCN and LCN given the same integer seed 1e-6.  Then the smoke mirror of
+tests/test_agents_multi.py::test_pcn_and_lcn.
 """
 
 import jax
@@ -267,6 +270,67 @@ def test_greedy_collect_on_dst():
         np.asarray(jagent.eval_commands(jstate.ts, jnp.asarray(cmds), jax.random.key(4))),
         atol=1e-5,
     )
+
+
+MINECART_PCN = dict(gamma=1.0, scaling_factor=(1.0, 1.0, 0.1, 0.1), max_episode_len=400, max_buffer_episodes=128, num_envs=8)
+
+
+def _minecart_warmup(seed: int):
+    """Both agents on minecart-deterministic with the JAX seed's flax
+    parameters, and the JAX ``train`` warm-up's 32 commands and per-batch keys."""
+    jagent = JPCN(jmake("minecart-deterministic-v0"), JPCNConfig(seed=seed, **MINECART_PCN))
+    jstate = jagent.init_state()
+    agent = PCN(make("minecart-deterministic-v0"), PCNConfig(seed=seed, **MINECART_PCN), device="cpu")
+    model = agent.make_model()
+    load_flax_params(model, _np(jstate.ts.params))
+    _, k0, k1 = jax.random.split(jstate.key, 3)
+    cmds = jnp.concatenate([jax.random.normal(k0, (32, 3)), jnp.full((32, 1), 400.0)], axis=1)
+    keys = [jax.random.fold_in(k1, i) for i in range(0, 32, 8)]
+    return jagent, jstate, agent, model, cmds, keys
+
+
+@jax.jit
+def _jax_gumbel(key):
+    """(8, 400, 6) Gumbel noise of each env's ``categorical`` draws in the JAX
+    ``collect_episodes`` under ``key``: env i's run key, split (k, ka, ks) a step."""
+
+    def env(k):
+        def step(k, _):
+            k, ka, _ = jax.random.split(k, 3)
+            return k, jax.random.gumbel(ka, (6,))
+
+        return jax.lax.scan(step, jax.random.split(k)[1], None, length=400)[1]
+
+    return jax.vmap(env)(jax.random.split(key, 8))
+
+
+def _assert_same_episodes(got, want):
+    np.testing.assert_array_equal(got.length.numpy(), np.asarray(want.length))
+    np.testing.assert_array_equal(got.action.numpy(), np.asarray(want.action))
+    # 400 steps of fuel summed in float32: the returns at 1e-4
+    for name in ("reward", "vec_return"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)), atol=1e-4, err_msg=name)
+
+
+def test_collect_on_minecart():
+    """Seed 0's warm-up of ``train`` on minecart-deterministic (400-step
+    episodes): the first 8 commands collected greedily, then all 32 sampled
+    with the JAX key chain's Gumbel noise handed to the port.  Lengths and
+    actions exact, returns 1e-4.  The JAX seed-0 warm-up holds an episode that
+    sells ore and returns home early, so the sampled half holds that path too."""
+    jagent, jstate, agent, model, cmds, keys = _minecart_warmup(0)
+    want = jagent.collect_episodes(jstate.ts, cmds[:8], keys[0], True)
+    _assert_same_episodes(agent.collect_episodes(model, _t(cmds[:8]), torch.Generator(), greedy=True), want)
+    early = 0
+    for i, key in enumerate(keys):
+        want = jagent.collect_episodes(jstate.ts, cmds[8 * i : 8 * i + 8], key)
+        noise = iter(np.asarray(_jax_gumbel(key)).transpose(1, 0, 2))
+        agent._gumbel = lambda gen, n: _t(next(noise))
+        got = agent.collect_episodes(model, _t(cmds[8 * i : 8 * i + 8]), torch.Generator())
+        _assert_same_episodes(got, want)
+        sold = got.vec_return[:, :2].sum(dim=1) > 0
+        early += int(((got.length < 400) & sold).sum())
+    assert early >= 1
 
 
 @pytest.mark.parametrize("algo", ["pcn", "lcn"])
