@@ -205,14 +205,8 @@ class DynaLoop:
 
     # ---------------------------------------------------------- orchestration
 
-    def train(self, total_timesteps: int, **kwargs):  # type: ignore[override]
-        """GPI-PD outer loop: LinearSupport + per-sub-segment dynamics phases."""
-        state = kwargs.pop("state", None) or self.init_state()
-        return self._train_outer(state, total_timesteps, **kwargs)
-
-    def _train_outer(
+    def train(  # type: ignore[override]
         self,
-        state,
         total_timesteps: int,
         ref_point: np.ndarray | None = None,
         known_pareto_front: np.ndarray | None = None,
@@ -221,7 +215,10 @@ class DynaLoop:
         timesteps_per_iter: int = 10_000,
         weight_selection_algo: str = "gpi-ls",
         eval_max_steps: int | None = None,
+        state=None,
     ):
+        """GPI-PD outer loop: LinearSupport + per-sub-segment dynamics phases."""
+        state = state if state is not None else self.init_state()
         cfg = self.cfg
         rep, algo = num_eval_episodes_for_front, weight_selection_algo
         max_steps = eval_max_steps or self.env.max_episode_steps or 500

@@ -9,7 +9,8 @@ does); a whole ``train_iteration`` on deep-sea-treasure with ``lr_frac`` < 1
 exact on the rollout's actions, obs and accrued rewards, 1e-5 on the params;
 ``policy_evaluate`` 1e-5; the n-D IPRO point-set machinery and the IPRO-2D
 box split exact; the float64 volumes of the n-D loop exact (both packages'
-host HV run the native WFG), 1e-12 where the JAX package's library is not built.  Then the smoke mirrors of
+host HV run the native WFG), 1e-12 where the JAX package's library is not built; the n-D loop's
+stopping rule on a stubbed oracle exact.  Then the smoke mirrors of
 tests/test_agents_multi.py::test_nlmoppo_and_ipro2d and ::test_ipro_nd_end_to_end.
 """
 
@@ -238,6 +239,61 @@ def test_ipro_nd_sequence_and_replay_equal():
     jsubs = jipro.replay(vec, jsubs)
     _same_sets(ipro, jipro)
     assert len(subs) == len(jsubs) and all(np.array_equal(a[1], b[1]) for a, b in zip(subs, jsubs))
+
+
+INIT_POINTS = np.float32([[0.7, -1.0], [23.7, -19.0]])  # the init phase's two extrema on deep-sea-treasure
+
+
+def _scripted_ipro(oracle, **cfg):
+    """Both packages' n-D IPRO on deep-sea-treasure with the NL-MOPPO agent
+    stubbed: ``train`` returns INIT_POINTS for the init phase, then
+    ``oracle(ipro, referent, call)``.  Each log records the referents and the
+    coverage before each oracle call."""
+    ppo = dict(num_envs=2, num_steps=8, hidden=(8, 8))
+    pair = []
+    for cls, conf, ppo_conf, jax_side in ((IPRO, IPROConfig, NLMOPPOConfig, False), (JIPRO, JIPROConfig, JNLMOPPOConfig, True)):
+        kw = {} if jax_side else dict(device="cpu")
+        obj = cls((jmake if jax_side else make)("deep-sea-treasure-v0"), conf(ppo=ppo_conf(**ppo), **cfg), **kw)
+        log = dict(referents=[], coverage=[], calls=0)
+
+        def train(total, u, state=None, obj=obj, log=log):
+            log["calls"] += 1
+            if log["calls"] <= len(INIT_POINTS):
+                return state, INIT_POINTS[log["calls"] - 1]
+            log["coverage"].append(obj.coverage)
+            return state, oracle(obj, log["referents"][-1], log["calls"] - len(INIT_POINTS) - 1)
+
+        def referent(log=log, f=obj.select_referent):
+            log["referents"].append(f())
+            return log["referents"][-1]
+
+        obj.agent.train, obj.agent.init_state, obj.select_referent = train, lambda seed=None: "state", referent
+        pair.append((obj, log))
+    return pair
+
+
+def _toward_ideal(fracs):
+    """An oracle that answers referent r with r + f·(ideal - r), f cycling through ``fracs``."""
+    return lambda obj, r, call: np.float32(r + fracs[call % len(fracs)] * (obj.ideal - r))
+
+
+@pytest.mark.parametrize("tolerance,iterations", [(0.05, 5), (0.02, 9)])
+def test_ipro_stops_at_first_coverage_within_tolerance(tolerance, iterations):
+    """``ipro_dst`` (tolerance 0.05) and ``ipro_dst_fine`` (0.02) stop alike:
+    the n-D loop ends after the first iteration whose coverage reaches
+    1 - tolerance, in both packages, on the same stubbed oracle (coverage
+    0.952 after 5 iterations, 0.984 after 9): the referents equal exactly, the
+    coverage too (1e-12 without the JAX library)."""
+    (ipro, log), (jipro, jlog) = _scripted_ipro(_toward_ideal((0.5, 0.5, 0.9)), tolerance=tolerance)
+    ipro.train()
+    jipro.train()
+    np.testing.assert_array_equal(np.asarray(log["referents"]), np.asarray(jlog["referents"]))
+    exact = jnative.available()  # else float64 volumes summed in another order
+    np.testing.assert_allclose(log["coverage"], jlog["coverage"], rtol=0 if exact else 1e-12, atol=0 if exact else 1e-15)
+    after = log["coverage"][1:] + [ipro.coverage]  # the coverage after each iteration
+    assert len(after) == iterations < IPROConfig.max_iterations and len(ipro.lower_points) > 0
+    assert all(1.0 - c > tolerance for c in after[:-1]) and 1.0 - after[-1] <= tolerance
+    assert ipro.coverage == jipro.coverage or not exact
 
 
 def test_ipro2d_box_split():
