@@ -64,6 +64,7 @@ from ..models.networks import (
 from ..parallel.mesh import RowShard, gather_rows, local
 from ..replay.buffer import MemberReplayBuffer, ReplayBuffer, Transition
 from ..replay.prioritized import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer
+from ..utils.profiling import span
 from ..utils.schedules import linearly_decaying_value
 from .base import MOAgentBase
 
@@ -355,51 +356,55 @@ class Envelope(MOAgentBase):
         n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
         ts, buffer = state.ts, state.buffer
         for _ in range(num_iters):
-            eps = self._epsilon(state.global_step)
-            # epsilon-greedy batched act (a shard acts on its rows, drawing for all n)
-            greedy = self._greedy_actions(ts.net, state.obs, state.weights)
-            rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
-            explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < eps
-            actions = torch.where(explore, rand_a, greedy)
+            with span("actor"):
+                with span("actor.act"):
+                    eps = self._epsilon(state.global_step)
+                    # epsilon-greedy batched act (a shard acts on its rows, drawing for all n)
+                    greedy = self._greedy_actions(ts.net, state.obs, state.weights)
+                    rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
+                    explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < eps
+                    actions = torch.where(explore, rand_a, greedy)
 
-            out = self.venv.step(state.env_state, actions, gen, shard)
-            done = out.terminated | out.truncated
-            state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
+                out = self.venv.step(state.env_state, actions, gen, shard)
+                done = out.terminated | out.truncated
+                state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
 
-            # store transitions: next_obs must be the pre-reset final obs; a
-            # shard's rows are all-gathered, so every replica stores all n
-            buffer.add_batch(
-                gather_rows(
-                    shard,
-                    Transition(
-                        obs=state.obs,
-                        action=actions,
-                        reward=out.reward,
-                        next_obs=out.final_obs,
-                        terminated=out.terminated.to(torch.float32),
-                    ),
+                # store transitions: next_obs must be the pre-reset final obs; a
+                # shard's rows are all-gathered, so every replica stores all n
+                buffer.add_batch(
+                    gather_rows(
+                        shard,
+                        Transition(
+                            obs=state.obs,
+                            action=actions,
+                            reward=out.reward,
+                            next_obs=out.final_obs,
+                            terminated=out.terminated.to(torch.float32),
+                        ),
+                    )
                 )
-            )
 
-            # per-episode weight resampling (reference :526-569)
-            new_w = local(shard, random_weights(gen, self.reward_dim, n=n, dist="gaussian"))
-            state.weights = torch.where(done[:, None], new_w, state.weights)
-            state.env_state, state.obs = out.state, out.obs
-            state.global_step += n
-            state.iter_count += 1
+                # per-episode weight resampling (reference :526-569)
+                new_w = local(shard, random_weights(gen, self.reward_dim, n=n, dist="gaussian"))
+                state.weights = torch.where(done[:, None], new_w, state.weights)
+                state.env_state, state.obs = out.state, out.obs
+                state.global_step += n
+                state.iter_count += 1
 
             # learn
             if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
-                lam = self._homotopy_lambda(state.global_step)
-                for _ in range(cfg.gradient_updates):
-                    if cfg.per:
-                        batch, idx, _probs = buffer.sample(gen, cfg.batch_size)
-                    else:
-                        batch = buffer.sample(gen, cfg.batch_size)
-                    sampled_w = random_weights(gen, self.reward_dim, n=cfg.num_sample_w, dist="gaussian")
-                    state.loss, td = self._update(ts, batch, sampled_w, lam)
-                    if cfg.per:
-                        buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
+                with span("learner"):
+                    lam = self._homotopy_lambda(state.global_step)
+                    for _ in range(cfg.gradient_updates):
+                        if cfg.per:
+                            batch, idx, _probs = buffer.sample(gen, cfg.batch_size)
+                        else:
+                            batch = buffer.sample(gen, cfg.batch_size)
+                        with span("learner.update"):
+                            sampled_w = random_weights(gen, self.reward_dim, n=cfg.num_sample_w, dist="gaussian")
+                            state.loss, td = self._update(ts, batch, sampled_w, lam)
+                        if cfg.per:
+                            buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
 
             # target net update (hard every freq iters, or polyak if tau<1)
             if cfg.tau < 1.0:

@@ -58,6 +58,7 @@ from ..outer.linear_support import LinearSupport
 from ..parallel.mesh import RowShard, gather, gather_rows, local
 from ..replay.buffer import ReplayBuffer, Transition
 from ..replay.prioritized import PrioritizedReplayBuffer
+from ..utils.profiling import span
 from ..utils.schedules import linearly_decaying_value, unique_tol
 from .base import MOAgentBase
 
@@ -402,16 +403,19 @@ class GPILS(LinearSupportLoop, MOAgentBase):
             cfg.final_epsilon,
         )
 
-    def _act_and_store(self, state: GPILSState, greedy: torch.Tensor, change_w_every_episode: bool) -> None:
-        """Epsilon-greedy actions from ``greedy``, one vector env step, the
-        transitions stored, task weights resampled at done; in place."""
-        cfg = self.cfg
-        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
+    def _epsilon_greedy(self, state: GPILSState, greedy: torch.Tensor) -> torch.Tensor:
+        """Each env's action: ``greedy``'s, or with probability epsilon a random one."""
+        n, gen, dev, shard = self.cfg.num_envs, state.gen, self.device, state.shard
         # a shard acts on its rows, drawing for all n envs
         rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
         explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < self._epsilon(state.global_step)
-        actions = torch.where(explore, rand_a, greedy)
+        return torch.where(explore, rand_a, greedy)
 
+    def _step_and_store(self, state: GPILSState, actions: torch.Tensor, change_w_every_episode: bool) -> None:
+        """One vector env step on ``actions``, the transitions stored, task
+        weights resampled at done; in place."""
+        cfg = self.cfg
+        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
         out = self.venv.step(state.env_state, actions, gen, shard)
         done = out.terminated | out.truncated
         state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
@@ -441,23 +445,28 @@ class GPILS(LinearSupportLoop, MOAgentBase):
         cfg = self.cfg
         ts, buffer = state.ts, state.buffer
         for _ in range(num_iters):
-            if cfg.use_gpi:
-                greedy = self._gpi_actions(ts.net, state.obs, state.task_w, state.valid_support)
-            else:
-                greedy = self._max_actions(ts.net, state.obs, state.task_w)
-            self._act_and_store(state, greedy, change_w_every_episode)
+            with span("actor"):
+                with span("actor.act"):
+                    if cfg.use_gpi:
+                        greedy = self._gpi_actions(ts.net, state.obs, state.task_w, state.valid_support)
+                    else:
+                        greedy = self._max_actions(ts.net, state.obs, state.task_w)
+                    actions = self._epsilon_greedy(state, greedy)
+                self._step_and_store(state, actions, change_w_every_episode)
 
             if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
-                task_w = gather(state.shard, state.task_w)
-                for _ in range(cfg.gradient_updates):
-                    if cfg.per:
-                        batch, idx, _probs = buffer.sample(state.gen, cfg.batch_size)
-                    else:
-                        batch = buffer.sample(state.gen, cfg.batch_size)
-                    w = self._batch_weights(state, cfg.batch_size, task_w)
-                    state.loss, td_w = self._update(ts, batch, w, state.gen)
-                    if cfg.per:
-                        buffer.update_priorities(idx, torch.clamp(td_w, min=cfg.min_priority) ** cfg.per_alpha)
+                with span("learner"):
+                    task_w = gather(state.shard, state.task_w)
+                    for _ in range(cfg.gradient_updates):
+                        if cfg.per:
+                            batch, idx, _probs = buffer.sample(state.gen, cfg.batch_size)
+                        else:
+                            batch = buffer.sample(state.gen, cfg.batch_size)
+                        with span("learner.update"):
+                            w = self._batch_weights(state, cfg.batch_size, task_w)
+                            state.loss, td_w = self._update(ts, batch, w, state.gen)
+                        if cfg.per:
+                            buffer.update_priorities(idx, torch.clamp(td_w, min=cfg.min_priority) ** cfg.per_alpha)
 
             if cfg.tau < 1.0:
                 polyak_update(ts.net, ts.target_net, cfg.tau)

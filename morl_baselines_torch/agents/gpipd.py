@@ -399,7 +399,7 @@ class GPIPD(DynaLoop, GPILS):
         n_real = cfg.batch_size - n_im
         for _ in range(num_iters):
             greedy = self._gpi_actions(ts.net, base.obs, base.task_w, base.valid_support)
-            self._act_and_store(base, greedy, change_w_every_episode)
+            self._step_and_store(base, self._epsilon_greedy(base, greedy), change_w_every_episode)
 
             if base.global_step >= cfg.learning_starts and base.iter_count % cfg.train_freq == 0:
                 # single gradient update until the warmup step threshold

@@ -26,6 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..parallel.mesh import local
+from ..utils.profiling import span
 from .base import MOEnv, tree_where
 
 
@@ -53,18 +54,19 @@ class VectorMOEnv:
         return local(shard, self.env.reset(self.num_envs, gen))
 
     def step(self, state, actions: torch.Tensor, gen: torch.Generator, shard=None) -> VecStepOut:
-        if hasattr(self.env, "vector_step"):
-            _host_unsharded(self.env, shard)
-            return self.env.vector_step(state, actions, gen)
-        n = self.num_envs
-        noise = local(shard, self.env.sample_noise(n, gen), self.env.noise_env_dim)
-        out = self.env.step(state, actions, noise)
-        done = out.terminated | out.truncated
-        reset_state, reset_obs = local(shard, self.env.reset(n, gen))
-        # select reset state/obs where done (same-step autoreset)
-        new_state = tree_where(done, reset_state, out.state)
-        obs = tree_where(done, reset_obs, out.obs)
-        return VecStepOut(new_state, obs, out.reward, out.terminated, out.truncated, out.obs)
+        with span("env.step"):
+            if hasattr(self.env, "vector_step"):
+                _host_unsharded(self.env, shard)
+                return self.env.vector_step(state, actions, gen)
+            n = self.num_envs
+            noise = local(shard, self.env.sample_noise(n, gen), self.env.noise_env_dim)
+            out = self.env.step(state, actions, noise)
+            done = out.terminated | out.truncated
+            reset_state, reset_obs = local(shard, self.env.reset(n, gen))
+            # select reset state/obs where done (same-step autoreset)
+            new_state = tree_where(done, reset_state, out.state)
+            obs = tree_where(done, reset_obs, out.obs)
+            return VecStepOut(new_state, obs, out.reward, out.terminated, out.truncated, out.obs)
 
 
 def _host_unsharded(env: MOEnv, shard) -> None:

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import gather, local
+from ..utils.profiling import span
 
 # std of a standard normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -473,20 +474,21 @@ def polyak_update(net: nn.Module, target_net: nn.Module, tau: float) -> None:
     (reference networks.py:120-139); tau=1 is a hard copy.  Float buffers
     (BatchRenorm statistics) are averaged too, integer ones copied, as the JAX
     package's ``_polyak_stats`` does."""
-    src, dst = list(net.parameters()), list(target_net.parameters())
-    # BatchRenorm running statistics track the same way; step counters copy hard
-    for b, tb in zip(net.buffers(), target_net.buffers()):
-        if b.is_floating_point():
-            src.append(b)
-            dst.append(tb)
-        else:
-            tb.copy_(b)
-    if tau >= 1.0:
-        for s, d in zip(src, dst):
-            d.copy_(s)
-    elif dst:
-        torch._foreach_mul_(dst, 1.0 - tau)
-        torch._foreach_add_(dst, src, alpha=tau)
+    with span("learner.target_copy"):
+        src, dst = list(net.parameters()), list(target_net.parameters())
+        # BatchRenorm running statistics track the same way; step counters copy hard
+        for b, tb in zip(net.buffers(), target_net.buffers()):
+            if b.is_floating_point():
+                src.append(b)
+                dst.append(tb)
+            else:
+                tb.copy_(b)
+        if tau >= 1.0:
+            for s, d in zip(src, dst):
+                d.copy_(s)
+        elif dst:
+            torch._foreach_mul_(dst, 1.0 - tau)
+            torch._foreach_add_(dst, src, alpha=tau)
 
 
 @torch.no_grad()

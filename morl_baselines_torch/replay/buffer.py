@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 class Transition(NamedTuple):
     obs: torch.Tensor
@@ -64,6 +66,11 @@ class ReplayBuffer:
 
     def add_batch(self, batch: Transition) -> "ReplayBuffer":
         """Insert N transitions at the ring pointer (N = leading dim), in place."""
+        with span("replay.add"):
+            return self._store(batch)
+
+    def _store(self, batch: Transition) -> "ReplayBuffer":
+        """``add_batch``'s ring scatter, outside its span (a subclass's span holds it)."""
         n = batch.obs.shape[0]
         idx = self._ring_idx(n)
         for buf, new in zip(self.data, batch):
@@ -96,10 +103,11 @@ class ReplayBuffer:
         use_cer: overwrite index 0 with the most recent transition
         (reference buffer.py:103-106).
         """
-        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen, device=gen.device)
-        if use_cer:
-            idx[0] = (self.ptr - 1) % self.capacity
-        return self.gather(idx)
+        with span("replay.sample"):
+            idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen, device=gen.device)
+            if use_cer:
+                idx[0] = (self.ptr - 1) % self.capacity
+            return self.gather(idx)
 
     def sample_obs(self, gen: torch.Generator, batch_size: int) -> torch.Tensor:
         """Sample observations only (reference buffer.py:118-124, used by Dyna)."""

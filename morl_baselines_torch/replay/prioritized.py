@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .buffer import MemberReplayBuffer, ReplayBuffer, Transition, _storage
 
 
@@ -52,15 +53,17 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def add_batch(self, batch: Transition, priority: torch.Tensor | None = None) -> "PrioritizedReplayBuffer":
         """Insert N transitions with priority (default: current max, reference :147-156)."""
-        n = batch.obs.shape[0]
-        idx = self._ring_idx(n)
-        p = self.max_priority if priority is None else priority
-        self.priorities.index_copy_(0, idx, torch.broadcast_to(p, (n,)).to(torch.float32))
-        return super().add_batch(batch)
+        with span("replay.add"):
+            n = batch.obs.shape[0]
+            idx = self._ring_idx(n)
+            p = self.max_priority if priority is None else priority
+            self.priorities.index_copy_(0, idx, torch.broadcast_to(p, (n,)).to(torch.float32))
+            return self._store(batch)
 
     def sample(self, gen: torch.Generator, batch_size: int):
         """Proportional sampling: returns (batch, idx, probs)."""
-        return self.sample_at(torch.rand((batch_size,), generator=gen, device=gen.device))
+        with span("replay.sample"):
+            return self.sample_at(torch.rand((batch_size,), generator=gen, device=gen.device))
 
     def sample_at(self, u: torch.Tensor):
         """Proportional sampling at given uniforms ``u`` in [0, 1).
@@ -73,9 +76,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def update_priorities(self, idx: torch.Tensor, priorities: torch.Tensor) -> "PrioritizedReplayBuffer":
         """Scatter new priorities, tracking the running max (reference :197-205)."""
-        p = torch.clamp(priorities, min=1e-12)
-        self.priorities[idx] = p
-        self.max_priority = torch.maximum(self.max_priority, p.max())
+        with span("replay.update_priorities"):
+            p = torch.clamp(priorities, min=1e-12)
+            self.priorities[idx] = p
+            self.max_priority = torch.maximum(self.max_priority, p.max())
         return self
 
     def reset_priorities(self, value: float = 1.0) -> "PrioritizedReplayBuffer":

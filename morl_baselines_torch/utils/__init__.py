@@ -1,6 +1,6 @@
 from .device import resolve_device
 from .logging import MetricLogger, reset_wandb_env
-from .profiling import PhaseTimer, trace
+from .profiling import PhaseTimer, span, trace
 from .render import make_gif, rollout_frames
 from .schedules import linearly_decaying_value, nearest_neighbors, unique_tol
 
@@ -13,6 +13,7 @@ __all__ = [
     "reset_wandb_env",
     "resolve_device",
     "rollout_frames",
+    "span",
     "trace",
     "unique_tol",
 ]

@@ -1,10 +1,13 @@
-"""Profiling: ``torch.profiler`` traces and host-side phase timing.
+"""Profiling: ``torch.profiler`` traces, the loop's spans and host-side phase timing.
 
 PyTorch port of ``morl_baselines_tpu/utils/profiling.py``.  ``trace`` wraps
 ``torch.profiler.profile`` (CPU and CUDA activity) around any training
-segment and exports a Chrome trace into ``logdir``; ``PhaseTimer`` sums
-wall-clock time per named learner phase (collect / update / eval / outer)
-between segments, under the same metric keys as the JAX package's.
+segment and exports a Chrome trace into ``logdir``; ``span`` names a stretch
+of the program as a profiler range (``actor``, ``env.step``, ``replay.add``,
+``learner.update``, ...) while a profiler records, and costs one flag read
+otherwise; ``PhaseTimer`` sums wall-clock time per named learner phase
+(collect / update / eval / outer) between segments, under the same metric
+keys as the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,6 +19,19 @@ from pathlib import Path
 from typing import Dict, Iterator
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a profiler is recording, else a shared no-op.
+
+    The gate reads the C++ profiler state, which ``torch.profiler.profile``,
+    ``torch.autograd.profiler.profile`` and ``emit_nvtx`` all set; a range is
+    on the same clock as the device activity of a trace and adds no device
+    work and no synchronise."""
+    return record_function(name) if torch._C._autograd._profiler_enabled() else _OFF
 
 
 @contextlib.contextmanager
