@@ -84,6 +84,19 @@ def _unpack(t: Any, s: Any) -> Any:
                 t.copy_(s)
             return t
         return s.to(device=t.device, dtype=t.dtype)
+    if isinstance(t, torch.optim.Optimizer):
+        # as saved: ``load_state_dict`` makes a capturable group's step counts float32,
+        # so each state tensor gets its saved dtype back; a capturable group steps only
+        # CUDA parameters, so on the CPU it loads as the default Adam
+        t.load_state_dict(s)
+        for group, saved in zip(t.param_groups, s["param_groups"]):
+            for p, i in zip(group["params"], saved["params"]):
+                for k, v in s["state"].get(i, {}).items():
+                    if isinstance(v, torch.Tensor):
+                        t.state[p][k] = t.state[p][k].to(v.dtype)
+            if group.get("capturable") and not group["params"][0].is_cuda:
+                group["capturable"] = False
+        return t
     if isinstance(t, (nn.Module, *_OPTIMIZERS)):
         t.load_state_dict(s)
         return t

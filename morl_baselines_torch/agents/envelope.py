@@ -27,7 +27,8 @@ the JAX package builds its Q-net with ``dtype=bfloat16``; params, optimizer
 and Q-values stay float32.
 The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
 optax's clip (``clip_grad_global_norm_``), then ``torch.optim.Adam`` with
-optax's betas and eps.
+optax's betas and eps.  On CUDA the one-seed loop's update is one CUDA graph
+replay (``models.graphed.GraphedUpdate``); on the CPU it runs eagerly.
 
 A seed axis (``init_state_seeds``, the JAX package's ``jax.vmap`` over
 ``init_state``/``train_segment``/``_eval_front`` in the sweep's stacked
@@ -52,6 +53,7 @@ from ..core.weights import equally_spaced_weights, random_weights
 from ..envs.base import MOEnv
 from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import evaluate_front, multi_policy_metrics
+from ..models.graphed import GraphedUpdate
 from ..models.networks import (
     EnvelopeQNet,
     MemberAdam,
@@ -140,6 +142,7 @@ class Envelope(MOAgentBase):
         self.cfg = config
         self.dtype = torch.bfloat16 if config.bf16 else None  # the Q-net's compute dtype at every call
         self.venv = VectorMOEnv(env, config.num_envs)
+        self._graphed = GraphedUpdate()  # the one-seed loop's update, a CUDA graph replay on the card
 
     def make_q_net(self, gen: torch.Generator | None = None) -> EnvelopeQNet:
         """A freshly initialized Q-net on the agent's device."""
@@ -252,7 +255,9 @@ class Envelope(MOAgentBase):
         wq = torch.sum(q_sa * w, dim=-1)
         wy = torch.sum(y * w, dim=-1)
         l_scal = torch.mean((wq - wy) ** 2)
-        loss = (1.0 - homotopy_lambda) * l_mo + homotopy_lambda * l_scal
+        # λ a float or a 0-d tensor: (1 - λ) in float64, each weight rounded to float32
+        lam = torch.as_tensor(homotopy_lambda, dtype=torch.float64)
+        loss = (1.0 - lam).float() * l_mo + lam.float() * l_scal
         return loss, wq - wy, l_mo
 
     def _update(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
@@ -260,7 +265,8 @@ class Envelope(MOAgentBase):
 
         ``sampled_w`` (num_sample_w, d) are the weights the batch is tiled
         over (drawn inside the JAX package's ``_update``; passed in here so a
-        test can give both the same ones).
+        test can give both the same ones).  ``homotopy_lambda`` is a float, or
+        inside a CUDA graph (``models.graphed``) a 0-d float64 tensor.
         """
         params = list(ts.net.parameters())
         loss, td_scal, _ = self._loss(ts, batch, sampled_w, homotopy_lambda)
@@ -402,7 +408,7 @@ class Envelope(MOAgentBase):
                             batch = buffer.sample(gen, cfg.batch_size)
                         with span("learner.update"):
                             sampled_w = random_weights(gen, self.reward_dim, n=cfg.num_sample_w, dist="gaussian")
-                            state.loss, td = self._update(ts, batch, sampled_w, lam)
+                            state.loss, td = self._graphed(self._update, ts, batch, sampled_w, lam)
                         if cfg.per:
                             buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
 

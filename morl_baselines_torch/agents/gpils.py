@@ -29,7 +29,9 @@ the target sync never wait on the device; randomness comes from one
 size and masks the padding with -inf, which never wins an argmax, so the
 actions are the same.
 
-The update runs in float32 (``resolve_device`` turns TF32 off on CUDA).
+The update runs in float32 (``resolve_device`` turns TF32 off on CUDA); on
+CUDA the loop's update is one CUDA graph replay (``models.graphed``), its
+dropout masks drawn from the state's generator as the eager update draws them.
 ``bf16_act`` casts the action forward's GEMMs to bfloat16, as the JAX
 package's ``q_net_act`` does; the update never does.
 """
@@ -47,6 +49,7 @@ from ..core.weights import equally_spaced_weights
 from ..envs.base import MOEnv
 from ..envs.vector import EpisodeStats, VectorMOEnv
 from ..evaluation.evaluation import evaluate_front, multi_policy_metrics
+from ..models.graphed import GraphedUpdate
 from ..models.networks import (
     TrainState,
     WeightConditionedQNet,
@@ -235,6 +238,7 @@ class GPILS(LinearSupportLoop, MOAgentBase):
         self.venv = VectorMOEnv(env, config.num_envs)
         # compute dtype of the action forward (the JAX package's q_net_act)
         self.act_dtype = torch.bfloat16 if config.bf16_act else None
+        self._graphed = GraphedUpdate()  # the loop's update, a CUDA graph replay on the card
 
     def make_q_net(self, gen: torch.Generator | None = None) -> WeightConditionedQNet:
         """A freshly initialized critic ensemble on the agent's device."""
@@ -464,7 +468,7 @@ class GPILS(LinearSupportLoop, MOAgentBase):
                             batch = buffer.sample(state.gen, cfg.batch_size)
                         with span("learner.update"):
                             w = self._batch_weights(state, cfg.batch_size, task_w)
-                            state.loss, td_w = self._update(ts, batch, w, state.gen)
+                            state.loss, td_w = self._graphed(self._update, ts, batch, w, state.gen)
                         if cfg.per:
                             buffer.update_priorities(idx, torch.clamp(td_w, min=cfg.min_priority) ** cfg.per_alpha)
 
