@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .base import ArrayBox, MOEnv, StepOut
 from .dst import _DEPTHS, _N_COLS, _N_ROWS, DeepSeaTreasure, DSTState
 
@@ -54,10 +55,11 @@ class PixelDST(MOEnv):
         return self._consts[device]
 
     def _render(self, state: DSTState) -> torch.Tensor:
-        """(n, 88, 80, 3) uint8 frames."""
-        bg, agent, rows, cols = self._tables(state.row.device)
-        mask = (rows[None, :, None] == state.row[:, None, None]) & (cols[None, None, :] == state.col[:, None, None])
-        return torch.where(mask[..., None], agent, bg)
+        """(n, 88, 80, 3) uint8 frames, in an ``env.frames`` span."""
+        with span("env.frames"):
+            bg, agent, rows, cols = self._tables(state.row.device)
+            mask = (rows[None, :, None] == state.row[:, None, None]) & (cols[None, None, :] == state.col[:, None, None])
+            return torch.where(mask[..., None], agent, bg)
 
     def reset(self, n: int, gen: torch.Generator):
         state, _ = self._inner.reset(n, gen)

@@ -9,7 +9,9 @@ PyTorch port of ``morl_baselines_tpu/envs/wrappers.py``.  A wrapper's state
 is an extra NamedTuple layer around the inner env's (frame rings, step
 counters), and every image op works on (n, ...) batches on the device, so
 the whole stack steps N envs in one call.  A wrapper's ``sample_noise`` is
-its inner env's (MaxAndSkip: one draw per sub-step, stacked).
+its inner env's (MaxAndSkip: one draw per sub-step, stacked).  The image work
+(the max of the last two frames, the resize, the grayscale, the stack shift)
+runs in ``env.frames`` spans, as the pixel env's renders do.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .base import ArrayBox, Box, MOEnv, StepOut, tree_where
 
 
@@ -95,9 +98,10 @@ class GrayscaleObservation(_ObsMapWrapper):
         self.observation_space = ArrayBox(0, 255, (h, w))
 
     def _map(self, obs):
-        r, g, b = obs.to(torch.float32).unbind(-1)
-        y = r * self._LUMA[0] + g * self._LUMA[1] + b * self._LUMA[2]
-        return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+        with span("env.frames"):
+            r, g, b = obs.to(torch.float32).unbind(-1)
+            y = r * self._LUMA[0] + g * self._LUMA[1] + b * self._LUMA[2]
+            return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
 
 class ResizeObservation(_ObsMapWrapper):
@@ -114,11 +118,12 @@ class ResizeObservation(_ObsMapWrapper):
         self.observation_space = ArrayBox(0, 255, self._hw + tuple(rest))
 
     def _map(self, obs):
-        x = obs.to(torch.float32)
-        x = x[:, None] if x.dim() == 3 else x.permute(0, 3, 1, 2)  # (n, C, H, W)
-        y = F.interpolate(x, size=self._hw, mode="bilinear", align_corners=False, antialias=True)
-        y = y[:, 0] if obs.dim() == 3 else y.permute(0, 2, 3, 1)
-        return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+        with span("env.frames"):
+            x = obs.to(torch.float32)
+            x = x[:, None] if x.dim() == 3 else x.permute(0, 3, 1, 2)  # (n, C, H, W)
+            y = F.interpolate(x, size=self._hw, mode="bilinear", align_corners=False, antialias=True)
+            y = y[:, 0] if obs.dim() == 3 else y.permute(0, 2, 3, 1)
+            return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +150,14 @@ class FrameStackObservation(_Wrapper):
 
     def reset(self, n: int, gen: torch.Generator):
         inner, obs = self.env.reset(n, gen)
-        frames = obs[:, None].expand(n, self.num_stack, *obs.shape[1:]).clone()
+        with span("env.frames"):
+            frames = obs[:, None].expand(n, self.num_stack, *obs.shape[1:]).clone()
         return FrameStackState(inner, frames), frames
 
     def step(self, state: FrameStackState, action, noise=None) -> StepOut:
         out = self.env.step(state.inner, action, noise)
-        frames = torch.cat([state.frames[:, 1:], out.obs[:, None]], dim=1)
+        with span("env.frames"):
+            frames = torch.cat([state.frames[:, 1:], out.obs[:, None]], dim=1)
         return StepOut(FrameStackState(out.state, frames), frames, out.reward, out.terminated, out.truncated)
 
 
@@ -185,9 +192,11 @@ class MOMaxAndSkipObservation(_Wrapper):
             alive = ~(terminated | truncated)
             state = tree_where(alive, out.state, state)
             reward = reward + torch.where(alive[:, None], out.reward, 0.0)
-            prev_obs, cur_obs = cur_obs, tree_where(alive, out.obs, cur_obs)
+            with span("env.frames"):
+                prev_obs, cur_obs = cur_obs, tree_where(alive, out.obs, cur_obs)
             terminated, truncated = terminated | out.terminated, truncated | out.truncated
-        obs = cur_obs if prev_obs is None else torch.maximum(prev_obs, cur_obs)
+        with span("env.frames"):
+            obs = cur_obs if prev_obs is None else torch.maximum(prev_obs, cur_obs)
         return StepOut(state, obs, reward, terminated, truncated)
 
 

@@ -325,7 +325,9 @@ class NatureCNN(nn.Module):
     ``members=S`` stacks S trunks (the JAX package's ``jax.vmap`` over
     unshared params): input (S, B, k, H, W), output (S, B, features_dim);
     the convolutions are ``MemberConv2d`` and the Dense an ``EnsembleDense``.  Each member draws its params in the
-    one-trunk order, so ``stack_members`` gives each seed's one-trunk init."""
+    one-trunk order, so ``stack_members`` gives each seed's one-trunk init.
+    A forward is a ``qnet.trunk`` span (inside a replayed CUDA graph no span
+    opens, so a trace of the loop holds the act's trunk alone)."""
 
     def __init__(
         self,
@@ -350,10 +352,11 @@ class NatureCNN(nn.Module):
             self.out = EnsembleDense(members, 64 * h * w, features_dim, gen, linear_init=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32) / 255.0
-        for layer in self.convs:
-            x = torch.relu(layer(x))
-        return torch.relu(self.out(x.movedim(-3, -1).flatten(-3)))
+        with span("qnet.trunk"):
+            x = x.to(torch.float32) / 255.0
+            for layer in self.convs:
+                x = torch.relu(layer(x))
+            return torch.relu(self.out(x.movedim(-3, -1).flatten(-3)))
 
     def flax_layout(self) -> dict:
         return {**{f"Conv_{i}": c for i, c in enumerate(self.convs)}, "Dense_0": self.out}
