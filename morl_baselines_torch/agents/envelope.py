@@ -11,7 +11,8 @@ multi_policy/envelope/envelope.py:33-573; Yang et al., 2019):
 - Per-episode Gaussian weight resampling (reference :526-569); optional PER
   with priorities (|w·td| + min_priority)^alpha (reference :329-334, 507-525).
 - ``image_shape``: a NatureCNN trunk on flat stacked frames (the pixel DST
-  under the mario wrapper stack).
+  under the mario wrapper stack).  The envelope target runs each net's trunk
+  once a distinct next frame of the batch, and only the head on the tiled rows.
 
 ``num_envs`` envs live on the device and a segment of (act -> step -> store
 -> learn) iterations is a Python loop of tensor ops, where the JAX package
@@ -220,17 +221,24 @@ class Envelope(MOAgentBase):
     def _envelope_target(self, ts: TrainState, next_obs, w, sampled_w) -> torch.Tensor:
         """max over (sampled w', a) of w·Q_online(s',a,w'), read off Q_target.
 
-        Reference envelope.py:404-440.  Shapes: next_obs (B, O), w (B, d),
-        sampled_w (W, d).  One batched forward over B*W rows per net.
+        Reference envelope.py:404-440.  Shapes: next_obs (F, O) for B a
+        multiple of F, row i's next obs next_obs[i % F] (``_loss`` gives its
+        batch's F distinct ones), w (B, d), sampled_w (W, d).  Each net's
+        trunk runs once on the F rows; its head runs on B*W rows, row r taking
+        the features of next_obs[(r // W) % F] by broadcast.
         """
-        b, n_w, d = next_obs.shape[0], sampled_w.shape[0], self.reward_dim
-        no = next_obs.repeat_interleave(n_w, dim=0)  # (B*W, O)
+        b, n_w, d = w.shape[0], sampled_w.shape[0], self.reward_dim
         ws = sampled_w.repeat(b, 1)  # (B*W, d)
-        q_online = ts.net(no, ws, self.dtype).reshape(b, n_w, -1, d)
+        tile = (b // next_obs.shape[0], -1, n_w, -1)
+
+        def q_of(net):
+            return net.head(net.features(next_obs)[None, :, None].expand(tile).flatten(0, 2), ws, self.dtype)
+
+        q_online = q_of(ts.net).reshape(b, n_w, -1, d)
         scal = torch.einsum("bd,bwad->bwa", w, q_online)
         best_a = torch.argmax(scal, dim=2)  # (B, W)
         best_w = torch.argmax(torch.max(scal, dim=2).values, dim=1)  # (B,)
-        q_target = ts.target_net(no, ws, self.dtype).reshape(b, n_w, -1, d)
+        q_target = q_of(ts.target_net).reshape(b, n_w, -1, d)
         q_at_a = torch.gather(q_target, 2, best_a[:, :, None, None].expand(b, n_w, 1, d)).squeeze(2)  # (B, W, d)
         return torch.gather(q_at_a, 1, best_w[:, None, None].expand(b, 1, d)).squeeze(1)  # (B, d)
 
@@ -243,10 +251,9 @@ class Envelope(MOAgentBase):
         obs = batch.obs.repeat(n_w, 1)
         actions = batch.action.repeat(n_w)
         rewards = batch.reward.repeat(n_w, 1)
-        next_obs = batch.next_obs.repeat(n_w, 1)
         dones = batch.terminated.repeat(n_w)
 
-        target_next = self._envelope_target(ts, next_obs, w, sampled_w)
+        target_next = self._envelope_target(ts, batch.next_obs, w, sampled_w)
         y = rewards + (1.0 - dones[:, None]) * cfg.gamma * target_next
 
         q = ts.net(obs, w, self.dtype)  # (W*B, A, d)

@@ -403,11 +403,20 @@ class EnvelopeQNet(nn.Module):
     def forward(self, obs: torch.Tensor, w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         """``dtype`` (bfloat16) computes the MLP head's Dense layers in it, with
         float32 outputs; the NatureCNN trunk stays float32, as in the JAX package."""
-        if self.image_shape is not None:
-            lead = obs.shape[:-1]
-            frames = obs.reshape(-1, *self.image_shape) if self.members is None else obs.reshape(lead[0], -1, *self.image_shape)
-            obs = self.cnn(frames).reshape(*lead, -1)
-        x = self.mlp(torch.cat([obs, w], dim=-1), dtype=dtype)
+        return self.head(self.features(obs), w, dtype)
+
+    def features(self, obs: torch.Tensor) -> torch.Tensor:
+        """The head's state input: the NatureCNN trunk's features of the flat
+        frames ``obs`` (float32), or ``obs`` itself without a trunk."""
+        if self.image_shape is None:
+            return obs
+        lead = obs.shape[:-1]
+        frames = obs.reshape(-1, *self.image_shape) if self.members is None else obs.reshape(lead[0], -1, *self.image_shape)
+        return self.cnn(frames).reshape(*lead, -1)
+
+    def head(self, features: torch.Tensor, w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Q-values (..., A, d) of the MLP head on features||w."""
+        x = self.mlp(torch.cat([features, w], dim=-1), dtype=dtype)
         return x.reshape(*x.shape[:-1], self.num_actions, self.reward_dim)
 
     def flax_layout(self) -> dict:

@@ -24,7 +24,7 @@ from morl_baselines_tpu.replay import Transition as JTransition
 from morl_baselines_torch.agents import Envelope, EnvelopeConfig
 from morl_baselines_torch.envs import make
 from morl_baselines_torch.evaluation import multi_policy_metrics
-from morl_baselines_torch.models import EnvelopeQNet, load_flax_params
+from morl_baselines_torch.models import EnvelopeQNet, load_flax_params, to_flax_params
 from morl_baselines_torch.replay import Transition
 
 torch.set_num_threads(1)
@@ -108,6 +108,38 @@ def test_envelope_target_parity():
     want = np.asarray(jagent._envelope_target(jts, jnp.asarray(next_obs), jnp.asarray(w), jnp.asarray(sw)))
     got = tagent._envelope_target(tts, torch.as_tensor(next_obs), torch.as_tensor(w), torch.as_tensor(sw))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def test_pixel_envelope_target_and_update_parity():
+    """The NatureCNN Q-net: the port's target from the batch's B distinct next
+    frames (each net's trunk once a frame, the head on the tiled rows) against
+    the JAX package's on the W-times tiled frames; then one update (loss, TD
+    errors, params after clip+Adam) against the JAX package's ``_update``."""
+    jagent, tagent = _agents("deep-sea-treasure-pixel-stack-v0", num_envs=2, buffer_size=8, batch_size=4,
+                             num_sample_w=2, image_shape=(4, 84, 84))
+    p_online, p_target = _flax_params(jagent, 5), _flax_params(jagent, 6)
+    jts = jagent.init_state(jax.random.key(0)).ts.replace(params=p_online, target_params=p_target)
+    tts = tagent.make_train_state(_to_torch(tagent, p_online))
+    load_flax_params(tts.target_net, jax.tree.map(np.asarray, p_target))
+    rng = np.random.default_rng(7)
+    b = _batch(rng, tagent, 4)
+    b["obs"], b["next_obs"] = (rng.integers(0, 256, size=(4, tagent.obs_dim)).astype(np.float32) for _ in range(2))
+    jbatch = JTransition(**{k: jnp.asarray(v) for k, v in b.items()})
+    key, lam = jax.random.key(11), 0.4
+    sw = np.array(j_random_weights(jax.random.split(key)[0], jagent.reward_dim, n=2, dist="gaussian"))
+    w = np.repeat(sw, 4, axis=0)
+    want = np.asarray(jagent._envelope_target(jts, jnp.tile(jbatch.next_obs, (2, 1)), jnp.asarray(w), jnp.asarray(sw)))
+    got = tagent._envelope_target(tts, torch.as_tensor(b["next_obs"]), torch.as_tensor(w), torch.as_tensor(sw))
+    assert got.shape == (8, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    jts, jloss, jtd = jax.jit(jagent._update)(jts, jbatch, key, lam)
+    tloss, ttd = tagent._update(tts, Transition(**{k: torch.as_tensor(v) for k, v in b.items()}), torch.as_tensor(sw), lam)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=ATOL, atol=ATOL)
+    np.testing.assert_allclose(ttd.numpy(), np.asarray(jtd), atol=ATOL)
+    mine, theirs = jax.tree.leaves(to_flax_params(tts.net)), jax.tree.leaves(jts.params["params"])
+    assert len(mine) == len(theirs) == 14  # three Conv, the trunk's Dense, three head Dense: kernel and bias each
+    for p_t, p_j in zip(mine, theirs):
+        np.testing.assert_allclose(p_t, np.asarray(p_j), atol=ATOL)
 
 
 def _jax_clipped_grads(jagent, ts, batch, key, lam):
