@@ -35,7 +35,9 @@ A seed axis (``init_state_seeds``, the JAX package's ``jax.vmap`` over
 ``init_state``/``train_segment``/``_eval_front`` in the sweep's stacked
 trial): S seeds train as one ``EnvelopeSeedsState`` whose Q-net, target,
 optimizer (``MemberAdam`` after a clip per seed), replay and S·N envs carry
-the seed axis first, so the S seeds share one stream of launches.  Member s
+the seed axis first, so the S seeds share one stream of launches.  The
+target, the update, the act and the loop are the one-seed ones, written over
+an optional leading seed axis; the stacked update stays eager.  Member s
 starts from the one-seed init of ``seeds[s]``.  The learn gate, the
 schedules and the target sync are shared, as ``global_step`` is equal for
 every seed; one generator serves all seeds.
@@ -44,6 +46,7 @@ every seed; one generator serves all seeds.
 from __future__ import annotations
 
 import copy
+import math
 import time
 from dataclasses import dataclass
 
@@ -221,112 +224,74 @@ class Envelope(MOAgentBase):
     def _envelope_target(self, ts: TrainState, next_obs, w, sampled_w) -> torch.Tensor:
         """max over (sampled w', a) of w·Q_online(s',a,w'), read off Q_target.
 
-        Reference envelope.py:404-440.  Shapes: next_obs (F, O) for B a
-        multiple of F, row i's next obs next_obs[i % F] (``_loss`` gives its
-        batch's F distinct ones), w (B, d), sampled_w (W, d).  Each net's
-        trunk runs once on the F rows; its head runs on B*W rows, row r taking
-        the features of next_obs[(r // W) % F] by broadcast.
+        Reference envelope.py:404-440.  Shapes, after the seed lead (S,) of a
+        stacked net (none for one seed): next_obs (F, O) for B a multiple of
+        F, row i's next obs next_obs[i % F] (``_loss`` gives its batch's F
+        distinct ones), w (B, d), sampled_w (W, d).  Each net's trunk runs
+        once on the F rows of each seed; its head runs on B*W rows, row r
+        taking the features of next_obs[(r // W) % F] by broadcast.
         """
-        b, n_w, d = w.shape[0], sampled_w.shape[0], self.reward_dim
-        ws = sampled_w.repeat(b, 1)  # (B*W, d)
-        tile = (b // next_obs.shape[0], -1, n_w, -1)
+        lead, (b, d), n_w = w.shape[:-2], w.shape[-2:], sampled_w.shape[-2]
+        ws = sampled_w.repeat(*[1] * len(lead), b, 1)  # (..., B*W, d)
+        tile = (*lead, b // next_obs.shape[-2], -1, n_w, -1)
 
         def q_of(net):
-            return net.head(net.features(next_obs)[None, :, None].expand(tile).flatten(0, 2), ws, self.dtype)
+            return net.head(net.features(next_obs)[..., None, :, None, :].expand(tile).flatten(-4, -2), ws, self.dtype)
 
-        q_online = q_of(ts.net).reshape(b, n_w, -1, d)
-        scal = torch.einsum("bd,bwad->bwa", w, q_online)
-        best_a = torch.argmax(scal, dim=2)  # (B, W)
-        best_w = torch.argmax(torch.max(scal, dim=2).values, dim=1)  # (B,)
-        q_target = q_of(ts.target_net).reshape(b, n_w, -1, d)
-        q_at_a = torch.gather(q_target, 2, best_a[:, :, None, None].expand(b, n_w, 1, d)).squeeze(2)  # (B, W, d)
-        return torch.gather(q_at_a, 1, best_w[:, None, None].expand(b, 1, d)).squeeze(1)  # (B, d)
+        q_online = q_of(ts.net).reshape(*lead, b, n_w, -1, d)
+        scal = torch.einsum("...bd,...bwad->...bwa", w, q_online)
+        best_a = torch.argmax(scal, dim=-1)  # (..., B, W)
+        best_w = torch.argmax(torch.max(scal, dim=-1).values, dim=-1)  # (..., B)
+        q_target = q_of(ts.target_net).reshape(*lead, b, n_w, -1, d)
+        q_at_a = torch.gather(q_target, -2, best_a[..., None, None].expand(*best_a.shape, 1, d)).squeeze(-2)
+        return torch.gather(q_at_a, -2, best_w[..., None, None].expand(*best_w.shape, 1, d)).squeeze(-2)  # (..., B, d)
 
     def _loss(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
         """Envelope homotopy loss of ``ts.net`` on ``batch`` tiled over the
-        sampled weights (reference :279-291); returns (loss, td_scal, l_mo)."""
-        cfg = self.cfg
-        n_w, b = sampled_w.shape[0], batch.obs.shape[0]
-        w = sampled_w.repeat_interleave(b, dim=0)  # (W*B, d)
-        obs = batch.obs.repeat(n_w, 1)
-        actions = batch.action.repeat(n_w)
-        rewards = batch.reward.repeat(n_w, 1)
-        dones = batch.terminated.repeat(n_w)
+        sampled weights (reference :279-291), per seed of the lead; returns
+        (loss, td_scal, l_mo)."""
+        lead, n_w, b = sampled_w.shape[:-2], sampled_w.shape[-2], batch.obs.shape[-2]
+        rows = len(lead)  # the batch's row axis
+
+        def tile(x):  # the batch's rows W times over
+            return x.repeat(*[1] * rows, n_w, *[1] * (x.dim() - rows - 1))
+
+        w = sampled_w.repeat_interleave(b, dim=rows)  # (..., W*B, d)
+        obs, actions, rewards, dones = map(tile, (batch.obs, batch.action, batch.reward, batch.terminated))
 
         target_next = self._envelope_target(ts, batch.next_obs, w, sampled_w)
-        y = rewards + (1.0 - dones[:, None]) * cfg.gamma * target_next
+        y = rewards + (1.0 - dones[..., None]) * self.cfg.gamma * target_next
 
-        q = ts.net(obs, w, self.dtype)  # (W*B, A, d)
-        q_sa = torch.gather(q, 1, actions.long()[:, None, None].expand(-1, 1, self.reward_dim)).squeeze(1)
-        l_mo = torch.mean((q_sa - y) ** 2)
+        q = ts.net(obs, w, self.dtype)  # (..., W*B, A, d)
+        q_sa = torch.gather(q, -2, actions.long()[..., None, None].expand(*actions.shape, 1, self.reward_dim)).squeeze(-2)
+        l_mo = torch.mean((q_sa - y) ** 2, dim=(-2, -1))
         wq = torch.sum(q_sa * w, dim=-1)
         wy = torch.sum(y * w, dim=-1)
-        l_scal = torch.mean((wq - wy) ** 2)
+        l_scal = torch.mean((wq - wy) ** 2, dim=-1)
         # λ a float or a 0-d tensor: (1 - λ) in float64, each weight rounded to float32
         lam = torch.as_tensor(homotopy_lambda, dtype=torch.float64)
         loss = (1.0 - lam).float() * l_mo + lam.float() * l_scal
         return loss, wq - wy, l_mo
 
     def _update(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
-        """One gradient step on the envelope loss, in place; returns (loss, td_scal[:B]).
+        """One gradient step on the envelope loss, in place; returns (loss, td_scal[..., :B]).
 
         ``sampled_w`` (num_sample_w, d) are the weights the batch is tiled
         over (drawn inside the JAX package's ``_update``; passed in here so a
         test can give both the same ones).  ``homotopy_lambda`` is a float, or
-        inside a CUDA graph (``models.graphed``) a 0-d float64 tensor.
+        inside a CUDA graph (``models.graphed``) a 0-d float64 tensor.  With
+        a stacked net every input carries the seed lead: each seed's gradient
+        is its own loss's, clipped by its own global norm, and ``MemberAdam``
+        keeps each seed's step count.
         """
         params = list(ts.net.parameters())
         loss, td_scal, _ = self._loss(ts, batch, sampled_w, homotopy_lambda)
-        ts.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        clip_grad_global_norm_(params, self.cfg.max_grad_norm)
-        ts.optimizer.step()
-        return loss.detach(), td_scal[: batch.obs.shape[0]].detach()
-
-    @torch.no_grad()
-    def _envelope_target_seeds(self, ts: TrainState, next_obs, w, sampled_w) -> torch.Tensor:
-        """``_envelope_target`` of each seed at once: next_obs (S, B, O), w
-        (S, B, d), sampled_w (S, W, d) -> (S, B, d)."""
-        s, b, n_w, d = next_obs.shape[0], next_obs.shape[1], sampled_w.shape[1], self.reward_dim
-        no = next_obs.repeat_interleave(n_w, dim=1)  # (S, B*W, O)
-        ws = sampled_w.repeat(1, b, 1)  # (S, B*W, d)
-        q_online = ts.net(no, ws, self.dtype).reshape(s, b, n_w, -1, d)
-        scal = torch.einsum("sbd,sbwad->sbwa", w, q_online)
-        best_a = torch.argmax(scal, dim=3)  # (S, B, W)
-        best_w = torch.argmax(torch.max(scal, dim=3).values, dim=2)  # (S, B)
-        q_target = ts.target_net(no, ws, self.dtype).reshape(s, b, n_w, -1, d)
-        q_at_a = torch.gather(q_target, 3, best_a[..., None, None].expand(s, b, n_w, 1, d)).squeeze(3)
-        return torch.gather(q_at_a, 2, best_w[..., None, None].expand(s, b, 1, d)).squeeze(2)
-
-    def _update_seeds(self, ts: TrainState, batch: Transition, sampled_w: torch.Tensor, homotopy_lambda: float):
-        """``_update`` of each seed at once, in place: batch rows (S, B, ...),
-        sampled_w (S, W, d).  Each seed's loss is its one-seed loss, its
-        gradient is clipped by its own global norm and its Adam keeps its own
-        step count.  Returns (loss (S,), td_scal[:, :B] (S, B))."""
-        cfg = self.cfg
-        n_w, b = sampled_w.shape[1], batch.obs.shape[1]
-        w = sampled_w.repeat_interleave(b, dim=1)  # (S, W*B, d)
-        obs = batch.obs.repeat(1, n_w, 1)
-        actions = batch.action.repeat(1, n_w)
-        rewards = batch.reward.repeat(1, n_w, 1)
-        next_obs = batch.next_obs.repeat(1, n_w, 1)
-        dones = batch.terminated.repeat(1, n_w)
-
-        target_next = self._envelope_target_seeds(ts, next_obs, w, sampled_w)
-        y = rewards + (1.0 - dones[..., None]) * cfg.gamma * target_next
-
-        q = ts.net(obs, w, self.dtype)  # (S, W*B, A, d)
-        q_sa = torch.gather(q, 2, actions.long()[..., None, None].expand(-1, -1, 1, self.reward_dim)).squeeze(2)
-        l_mo = torch.mean((q_sa - y) ** 2, dim=(1, 2))
-        wq = torch.sum(q_sa * w, dim=-1)
-        wy = torch.sum(y * w, dim=-1)
-        l_scal = torch.mean((wq - wy) ** 2, dim=1)
-        loss = (1.0 - homotopy_lambda) * l_mo + homotopy_lambda * l_scal
         ts.optimizer.zero_grad()
-        loss.sum().backward()  # the seeds share no params: each gets its own loss's gradient
-        clip_grad_global_norm_members_(list(ts.net.parameters()), cfg.max_grad_norm)
+        loss.backward(torch.ones_like(loss))  # the seeds share no params
+        clip = clip_grad_global_norm_ if ts.net.members is None else clip_grad_global_norm_members_
+        clip(params, self.cfg.max_grad_norm)
         ts.optimizer.step()
-        return loss.detach(), (wq - wy)[:, :b].detach()
+        return loss.detach(), td_scal[..., : batch.obs.shape[-2]].detach()
 
     # ---------------------------------------------------------- train segment
 
@@ -358,27 +323,35 @@ class Envelope(MOAgentBase):
 
     @torch.no_grad()
     def _greedy_actions(self, net: EnvelopeQNet, obs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-        q = net(obs, weights, self.dtype)  # (N, A, d)
-        return torch.argmax(torch.einsum("nd,nad->na", weights, q), dim=-1)
+        q = net(obs, weights, self.dtype)  # (..., N, A, d)
+        return torch.argmax(torch.einsum("...nd,...nad->...na", weights, q), dim=-1)
 
     def train_segment(self, state: EnvelopeState | EnvelopeSeedsState, num_iters: int):
-        """Run ``num_iters`` actor-learner iterations, updating ``state`` in place."""
-        if isinstance(state, EnvelopeSeedsState):
-            return self._train_segment_seeds(state, num_iters)
+        """Run ``num_iters`` actor-learner iterations, updating ``state`` in place.
+
+        A stacked state's tensors carry the seed lead (S,): its S·N envs step
+        as flat rows, viewed back to the lead, and every draw takes the lead's
+        shape, in the one-seed order."""
         cfg = self.cfg
-        n, gen, dev, shard = cfg.num_envs, state.gen, self.device, state.shard
+        lead = state.obs.shape[:-2]
+        n, d, gen, dev = cfg.num_envs, self.reward_dim, state.gen, self.device
+        venv, shard = (state.venv, None) if lead else (self.venv, state.shard)
         ts, buffer = state.ts, state.buffer
+
+        def view(x):  # flat rows (of envs or draws) to the lead
+            return x.reshape(*lead, -1, *x.shape[1:]) if lead else x
+
         for _ in range(num_iters):
             with span("actor"):
                 with span("actor.act"):
                     eps = self._epsilon(state.global_step)
                     # epsilon-greedy batched act (a shard acts on its rows, drawing for all n)
                     greedy = self._greedy_actions(ts.net, state.obs, state.weights)
-                    rand_a = local(shard, torch.randint(0, self.env.num_actions, (n,), generator=gen, device=dev))
-                    explore = local(shard, torch.rand((n,), generator=gen, device=dev)) < eps
+                    rand_a = local(shard, torch.randint(0, self.env.num_actions, (*lead, n), generator=gen, device=dev))
+                    explore = local(shard, torch.rand((*lead, n), generator=gen, device=dev)) < eps
                     actions = torch.where(explore, rand_a, greedy)
 
-                out = self.venv.step(state.env_state, actions, gen, shard)
+                out = venv.step(state.env_state, actions.reshape(-1) if lead else actions, gen, shard)
                 done = out.terminated | out.truncated
                 state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
 
@@ -390,17 +363,17 @@ class Envelope(MOAgentBase):
                         Transition(
                             obs=state.obs,
                             action=actions,
-                            reward=out.reward,
-                            next_obs=out.final_obs,
-                            terminated=out.terminated.to(torch.float32),
+                            reward=view(out.reward),
+                            next_obs=view(out.final_obs),
+                            terminated=view(out.terminated.to(torch.float32)),
                         ),
                     )
                 )
 
                 # per-episode weight resampling (reference :526-569)
-                new_w = local(shard, random_weights(gen, self.reward_dim, n=n, dist="gaussian"))
-                state.weights = torch.where(done[:, None], new_w, state.weights)
-                state.env_state, state.obs = out.state, out.obs
+                new_w = view(local(shard, random_weights(gen, d, n=math.prod(lead) * n, dist="gaussian")))
+                state.weights = torch.where(view(done)[..., None], new_w, state.weights)
+                state.env_state, state.obs = out.state, view(out.obs)
                 state.global_step += n
                 state.iter_count += 1
 
@@ -414,68 +387,12 @@ class Envelope(MOAgentBase):
                         else:
                             batch = buffer.sample(gen, cfg.batch_size)
                         with span("learner.update"):
-                            sampled_w = random_weights(gen, self.reward_dim, n=cfg.num_sample_w, dist="gaussian")
+                            sampled_w = view(random_weights(gen, d, n=math.prod(lead) * cfg.num_sample_w, dist="gaussian"))
                             state.loss, td = self._graphed(self._update, ts, batch, sampled_w, lam)
                         if cfg.per:
                             buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
 
             # target net update (hard every freq iters, or polyak if tau<1)
-            if cfg.tau < 1.0:
-                polyak_update(ts.net, ts.target_net, cfg.tau)
-            elif state.iter_count % cfg.target_net_update_freq == 0:
-                polyak_update(ts.net, ts.target_net, 1.0)
-        return state
-
-    @torch.no_grad()
-    def _greedy_actions_seeds(self, net: EnvelopeQNet, obs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-        q = net(obs, weights, self.dtype)  # (S, M, A, d)
-        return torch.argmax(torch.einsum("smd,smad->sma", weights, q), dim=-1)
-
-    def _train_segment_seeds(self, state: EnvelopeSeedsState, num_iters: int) -> EnvelopeSeedsState:
-        """``train_segment`` of every seed at once: the iteration of the
-        one-seed loop with (S, ...) tensors, drawing in the same order."""
-        cfg = self.cfg
-        S, n, d, gen, dev = state.members, cfg.num_envs, self.reward_dim, state.gen, self.device
-        ts, buffer, venv = state.ts, state.buffer, state.venv
-        for _ in range(num_iters):
-            eps = self._epsilon(state.global_step)
-            greedy = self._greedy_actions_seeds(ts.net, state.obs, state.weights)
-            rand_a = torch.randint(0, self.env.num_actions, (S, n), generator=gen, device=dev)
-            explore = torch.rand((S, n), generator=gen, device=dev) < eps
-            actions = torch.where(explore, rand_a, greedy)
-
-            out = venv.step(state.env_state, actions.reshape(S * n), gen)
-            done = out.terminated | out.truncated
-            state.stats, _ = state.stats.update(out.reward, done, cfg.gamma)
-
-            buffer.add_batch(
-                Transition(
-                    obs=state.obs,
-                    action=actions,
-                    reward=out.reward.reshape(S, n, d),
-                    next_obs=out.final_obs.reshape(S, n, -1),
-                    terminated=out.terminated.to(torch.float32).reshape(S, n),
-                )
-            )
-
-            new_w = random_weights(gen, d, n=S * n, dist="gaussian").reshape(S, n, d)
-            state.weights = torch.where(done.reshape(S, n, 1), new_w, state.weights)
-            state.env_state, state.obs = out.state, out.obs.reshape(S, n, -1)
-            state.global_step += n
-            state.iter_count += 1
-
-            if state.global_step >= cfg.learning_starts and state.iter_count % cfg.train_freq == 0:
-                lam = self._homotopy_lambda(state.global_step)
-                for _ in range(cfg.gradient_updates):
-                    if cfg.per:
-                        batch, idx, _probs = buffer.sample(gen, cfg.batch_size)
-                    else:
-                        batch = buffer.sample(gen, cfg.batch_size)
-                    sampled_w = random_weights(gen, d, n=S * cfg.num_sample_w, dist="gaussian").reshape(S, -1, d)
-                    state.loss, td = self._update_seeds(ts, batch, sampled_w, lam)
-                    if cfg.per:
-                        buffer.update_priorities(idx, (td.abs() + cfg.min_priority) ** cfg.per_alpha)
-
             if cfg.tau < 1.0:
                 polyak_update(ts.net, ts.target_net, cfg.tau)
             elif state.iter_count % cfg.target_net_update_freq == 0:
@@ -500,7 +417,7 @@ class Envelope(MOAgentBase):
         S = net.members
 
         def act(obs, w, g):
-            return self._greedy_actions_seeds(net, obs.reshape(S, -1, obs.shape[-1]), w.reshape(S, -1, w.shape[-1])).reshape(-1)
+            return self._greedy_actions(net, obs.reshape(S, -1, obs.shape[-1]), w.reshape(S, -1, w.shape[-1])).reshape(-1)
 
         front = evaluate_front(self.env, act, weights.repeat(S, 1), gen, rep=rep, gamma=self.cfg.gamma, max_steps=max_steps)
         return front.reshape(S, weights.shape[0], -1)

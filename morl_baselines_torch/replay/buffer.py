@@ -149,6 +149,11 @@ class MemberReplayBuffer:
 
     def add_batch(self, batch: Transition) -> "MemberReplayBuffer":
         """Insert (P, N, ...) transitions at the ring pointer, in place."""
+        with span("replay.add"):
+            return self._store(batch)
+
+    def _store(self, batch: Transition) -> "MemberReplayBuffer":
+        """``add_batch``'s ring scatter, outside its span (a subclass's span holds it)."""
         n = batch.obs.shape[1]
         idx = (self.ptr + torch.arange(n, device=self.data.obs.device)) % self.capacity
         for buf, new in zip(self.data, batch):
@@ -161,8 +166,9 @@ class MemberReplayBuffer:
         """batch_size uniform rows (with replacement) from each member's ring:
         (P, batch_size, ...).  The members sharded over ranks (``shard``), the
         indices are drawn for all members and each rank keeps its own."""
-        n = self.members if shard is None else self.members * shard.world
-        idx = torch.randint(0, max(self.size, 1), (n, batch_size), generator=gen, device=gen.device)
-        idx = idx if shard is None else shard.local(idx)
-        rows = torch.arange(self.members, device=idx.device)[:, None]
-        return Transition(*(x[rows, idx] for x in self.data))
+        with span("replay.sample"):
+            n = self.members if shard is None else self.members * shard.world
+            idx = torch.randint(0, max(self.size, 1), (n, batch_size), generator=gen, device=gen.device)
+            idx = idx if shard is None else shard.local(idx)
+            rows = torch.arange(self.members, device=idx.device)[:, None]
+            return Transition(*(x[rows, idx] for x in self.data))

@@ -123,14 +123,16 @@ class MemberPrioritizedReplayBuffer(MemberReplayBuffer):
 
     def add_batch(self, batch: Transition) -> "MemberPrioritizedReplayBuffer":
         """Insert (P, N, ...) transitions at each member's current max priority."""
-        n = batch.obs.shape[1]
-        idx = (self.ptr + torch.arange(n, device=self.priorities.device)) % self.capacity
-        self.priorities.index_copy_(1, idx, self.max_priority[:, None].expand(-1, n).contiguous())
-        return super().add_batch(batch)
+        with span("replay.add"):
+            n = batch.obs.shape[1]
+            idx = (self.ptr + torch.arange(n, device=self.priorities.device)) % self.capacity
+            self.priorities.index_copy_(1, idx, self.max_priority[:, None].expand(-1, n).contiguous())
+            return self._store(batch)
 
     def sample(self, gen: torch.Generator, batch_size: int):
         """Proportional sampling per member: returns (batch (P, B, ...), idx (P, B), probs (P, B))."""
-        return self.sample_at(torch.rand((self.members, batch_size), generator=gen, device=gen.device))
+        with span("replay.sample"):
+            return self.sample_at(torch.rand((self.members, batch_size), generator=gen, device=gen.device))
 
     def sample_at(self, u: torch.Tensor):
         """Each member's rows at its uniforms ``u`` (P, B) in [0, 1), by the
@@ -143,7 +145,8 @@ class MemberPrioritizedReplayBuffer(MemberReplayBuffer):
 
     def update_priorities(self, idx: torch.Tensor, priorities: torch.Tensor) -> "MemberPrioritizedReplayBuffer":
         """Scatter each member's new priorities (P, B), tracking its running max."""
-        p = torch.clamp(priorities, min=1e-12)
-        self.priorities.scatter_(1, idx, p)
-        self.max_priority = torch.maximum(self.max_priority, p.max(dim=1).values)
+        with span("replay.update_priorities"):
+            p = torch.clamp(priorities, min=1e-12)
+            self.priorities.scatter_(1, idx, p)
+            self.max_priority = torch.maximum(self.max_priority, p.max(dim=1).values)
         return self

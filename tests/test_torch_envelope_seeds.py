@@ -13,8 +13,10 @@ evaluated fronts atol 1e-5.  The stacked NatureCNN trunk (pixel obs at a
 small image, (2, 36, 36)): the forward against ``jax.vmap`` of the JAX
 pixel Q-net on carried params at atol 1e-5 / rtol 1e-5 (float32
 convolutions summed in another order), against S one-seed port forwards at
-atol 1e-6.
+atol 1e-6; two stacked pixel updates against S one-seed ones atol 1e-5.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +34,7 @@ from morl_baselines_torch.agents import Envelope, EnvelopeConfig
 from morl_baselines_torch.agents.envelope import EnvelopeSeedsState
 from morl_baselines_torch.core.weights import equally_spaced_weights
 from morl_baselines_torch.envs import make
-from morl_baselines_torch.models import EnvelopeQNet, load_flax_params, stack_members, to_flax_params
+from morl_baselines_torch.models import EnvelopeQNet, MemberAdam, TrainState, load_flax_params, stack_members, to_flax_params
 from morl_baselines_torch.replay import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer, Transition
 
 torch.set_num_threads(1)
@@ -134,7 +136,7 @@ def test_envelope_target_seeds_parity(bf16):
     w = rng.dirichlet(np.ones(3), size=(S, b)).astype(np.float32)
     sw = rng.dirichlet(np.ones(3), size=(S, n_w)).astype(np.float32)
     want = np.asarray(jax.vmap(jagent._envelope_target)(jts, jnp.asarray(next_obs), jnp.asarray(w), jnp.asarray(sw)))
-    got = tagent._envelope_target_seeds(state.ts, *map(torch.as_tensor, (next_obs, w, sw))).numpy()
+    got = tagent._envelope_target(state.ts, *map(torch.as_tensor, (next_obs, w, sw))).numpy()
     assert got.shape == (S, b, 3)
     rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (0.0, ATOL)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
@@ -170,8 +172,8 @@ def test_update_seeds_parity(bf16):
         keys = jax.random.split(jax.random.key(20 + step), S)
         sw = np.stack([_jax_sampled_weights(jagent, k) for k in keys])
         jts, jloss, jtd = jupdate(jts, JTransition(**{k: jnp.asarray(v) for k, v in b.items()}), keys, lam)
-        loss, td = tagent._update_seeds(state.ts, Transition(**{k: torch.as_tensor(v) for k, v in b.items()}),
-                                        torch.as_tensor(sw), lam)
+        loss, td = tagent._update(state.ts, Transition(**{k: torch.as_tensor(v) for k, v in b.items()}),
+                                  torch.as_tensor(sw), lam)
         assert loss.shape == (S,) and td.shape == (S, 16)
         rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (ATOL, ATOL)
         np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), rtol=rtol, atol=atol)
@@ -205,7 +207,7 @@ def test_huge_gradient_rescales_no_other_seed():
         state = tagent.init_state_seeds(range(S))
         before = [p.detach().clone() for p in state.ts.net.parameters()]
         bb = dict(b, reward=b["reward"] * np.array([scale, 1.0, 1.0], dtype=np.float32)[:, None, None])
-        tagent._update_seeds(state.ts, Transition(**{k: torch.as_tensor(v) for k, v in bb.items()}), sw, 0.5)
+        tagent._update(state.ts, Transition(**{k: torch.as_tensor(v) for k, v in bb.items()}), sw, 0.5)
         results.append((before, [p.detach().clone() for p in state.ts.net.parameters()]))
     (_, ordinary), (before, huge) = results
     for p, q in zip(ordinary, huge):
@@ -337,6 +339,44 @@ def test_stacked_pixel_forward_equals_one_seed_forwards():
         one = make_net(None, torch.Generator().manual_seed(seed))
         want = one(torch.as_tensor(obs[s]), torch.as_tensor(w[s])).detach()
         np.testing.assert_allclose(got[s].numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_stacked_pixel_update_equals_one_seed_updates():
+    """Two updates of a stacked pixel net (S = 3) equal S one-seed pixel
+    updates on loss, TD errors and params; each seed's target runs each trunk
+    once on its B distinct next frames, as the one-seed target does."""
+    _, agent = _agents("deep-sea-treasure-v0", num_sample_w=2)  # 4 actions x 2 objectives, as the nets below
+    make_net = lambda members, gen: EnvelopeQNet(IMAGE_OBS, 4, 2, (32, 32), gen, IMAGE, 64, members)  # noqa: E731
+    net, target = stack_members(make_net, [1, 2, 3]), stack_members(make_net, [4, 5, 6]).requires_grad_(False)
+    stacked = TrainState(net=net, target_net=target, optimizer=MemberAdam(net.parameters(), lr=agent.cfg.learning_rate))
+    ones = []
+    for s in range(S):
+        one, one_target = make_net(None, torch.Generator().manual_seed(1 + s)), make_net(None, torch.Generator().manual_seed(4 + s))
+        opt = torch.optim.Adam(one.parameters(), lr=agent.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        ones.append(TrainState(net=one, target_net=copy.deepcopy(one_target).requires_grad_(False), optimizer=opt))
+    trunk_rows = []
+    for cnn in (net.cnn, target.cnn):
+        cnn.register_forward_hook(lambda m, args, out: trunk_rows.append(tuple(args[0].shape[:2])))
+    rng = np.random.default_rng(8)
+    b, lam = 8, 0.3
+    for step in range(2):
+        obs, _ = _pixel_inputs(10 + step, S, 2 * b)
+        batch = dict(obs=obs[:, :b], next_obs=obs[:, b:], action=rng.integers(0, 4, size=(S, b)),
+                     reward=rng.normal(size=(S, b, 2)).astype(np.float32),
+                     terminated=(rng.uniform(size=(S, b)) < 0.3).astype(np.float32))
+        sw = rng.dirichlet(np.ones(2), size=(S, 2)).astype(np.float32)
+        trunk_rows.clear()
+        loss, td = agent._update(stacked, Transition(**{k: torch.as_tensor(v) for k, v in batch.items()}), torch.as_tensor(sw), lam)
+        assert loss.shape == (S,) and td.shape == (S, b)
+        assert trunk_rows == [(S, b), (S, b), (S, 2 * b)]  # target side: B frames a net; the loss's W·B tiled rows
+        for s in range(S):
+            lone, tdone = agent._update(ones[s], Transition(**{k: torch.as_tensor(v[s]) for k, v in batch.items()}),
+                                        torch.as_tensor(sw[s]), lam)
+            np.testing.assert_allclose(float(loss[s]), float(lone), rtol=ATOL, atol=ATOL)
+            np.testing.assert_allclose(td[s].numpy(), tdone.numpy(), atol=ATOL)
+            for p, q in zip(jax.tree.leaves(to_flax_params(net)), jax.tree.leaves(to_flax_params(ones[s].net))):
+                np.testing.assert_allclose(p[s], q, atol=ATOL)
+    assert stacked.optimizer.step_count.tolist() == [2] * S
 
 
 def test_stacked_pixel_train_segment_runs():

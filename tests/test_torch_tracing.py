@@ -1,5 +1,5 @@
-"""The loop's spans (``utils.profiling.span``) in Envelope's and GPI-LS's
-``train_segment``: how many of each an iteration records under a profiler,
+"""The loop's spans (``utils.profiling.span``) in Envelope's (one seed and
+seeds stacked) and GPI-LS's ``train_segment``: how many of each an iteration records under a profiler,
 where each lies, that they change no result, that they cost nothing without a
 profiler, and that ``trace`` exports them.  CPU, tiny widths; imports no JAX.
 """
@@ -13,6 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from morl_baselines_torch.agents import GPILS, Envelope, EnvelopeConfig, GPILSConfig
 from morl_baselines_torch.envs import make
+from morl_baselines_torch.models import MemberAdam
 from morl_baselines_torch.utils import profiling, span, trace
 
 torch.set_num_threads(1)
@@ -23,14 +24,15 @@ UPDATES, COPY_EVERY, ITERS = 2, 3, 6
 # 16 envs and learning from 32 rows: the second iteration is the first that learns
 SMALL = dict(num_envs=16, buffer_size=256, batch_size=8, hidden=(16, 16), learning_starts=32,
              gradient_updates=UPDATES, target_net_update_freq=COPY_EVERY, seed=3)
-CASES = [("envelope", False), ("envelope", True), ("gpils", False), ("gpils", True)]
+CASES = [("envelope", False), ("envelope", True), ("envelope-seeds", False), ("envelope-seeds", True),
+         ("gpils", False), ("gpils", True)]
 
 
 def _build(algo: str, per: bool):
     env = make("minecart-v0")
-    if algo == "envelope":
+    if algo.startswith("envelope"):
         agent = Envelope(env, EnvelopeConfig(**SMALL, per=per, num_sample_w=3), device="cpu")
-        return agent, agent.init_state()
+        return agent, (agent.init_state_seeds([3, 5]) if algo == "envelope-seeds" else agent.init_state())
     agent = GPILS(env, GPILSConfig(**SMALL, per=per, max_support=4), device="cpu")
     support = [np.eye(3, dtype=np.float32)[i] for i in range(3)] + [np.full(3, 1 / 3, np.float32)]
     return agent, agent.set_weight_support(agent.init_state(), support)
@@ -89,7 +91,11 @@ def _snapshot(state) -> list:
     out = [p.detach().clone() for p in state.ts.net.parameters()]
     out += [p.detach().clone() for p in state.ts.target_net.parameters()]
     out += [x.clone() for x in state.buffer.data] + [state.loss.clone(), state.obs.clone()]
-    out += [v.clone() for s in state.ts.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
+    opt = state.ts.optimizer
+    if isinstance(opt, MemberAdam):
+        out += [v.clone() for v in (*opt.exp_avg, *opt.exp_avg_sq, opt.step_count)]
+    else:
+        out += [v.clone() for s in opt.state.values() for v in s.values() if torch.is_tensor(v)]
     if hasattr(state.buffer, "priorities"):
         out += [state.buffer.priorities.clone(), state.buffer.max_priority.clone()]
     return out
