@@ -10,7 +10,12 @@ column chunks spread over the card above) and both compare paths (arithmetic
 on finite tiles, predicates on the rest), and times both at the main path's size and
 at archive scale (N=131072), with the profiler's device time beside the event
 time.  Drives ``DeviceParetoFront.add`` at archive scale (65536 + 65536 points)
-and checks the kept set against the plain path.  Then drives the main path —
+and checks the kept set against the plain path.  ``[adam_step]`` holds the
+learner's clip and Adam kernel pair (``csrc/adam_step.cu``) against the clip
+and torch's capturable Adam over 20 steps at the cells' two parameter counts
+(bitwise where the clip does not scale, within 4 float32 ulps where it does)
+and times it, eager and as a replayed graph, beside the plain path and
+torch's fused Adam.  Then drives the main path —
 Envelope Q-learning on minecart at the accelerator config of
 ``bench.py::bench_envelope_minecart`` (32768 envs, (256,)*4 Q-net) — through
 ``train_segment`` and ``Envelope.train`` and scores the evaluated front on the
@@ -225,7 +230,10 @@ from morl_baselines_torch.parallel import assert_replicas_synced, make_mesh, sha
 from morl_baselines_torch.replay import Transition
 from morl_baselines_torch.evaluation import device_front_metrics, multi_policy_metrics, rollout_episode
 from morl_baselines_torch.evaluation import evaluation as evaluation_module
+from morl_baselines_torch.models.graphed import _make_capturable
+from morl_baselines_torch.models.networks import EnvelopeQNet
 from morl_baselines_torch.ops import _build
+from morl_baselines_torch.ops.adam_step import adam_step_plain, clip_adam_step_
 from morl_baselines_torch.ops.pareto_kernel import nd_launch_plan, non_dominated_mask_cuda, non_dominated_mask_plain
 from morl_baselines_torch.utils import native
 
@@ -2464,6 +2472,147 @@ def phase_archive_add(smi: str, n: int = 131072, d: int = 3) -> dict:
     return res
 
 
+# the cells' Q-nets whose clip and Adam step the kernel pair takes: Envelope's on minecart, the pixel Q-net
+ADAM_NETS = {"envelope": lambda: EnvelopeQNet(7, 6, 3),
+             "pixel": lambda: EnvelopeQNet(4 * 84 * 84, 4, 2, image_shape=(4, 84, 84))}
+ADAM_STEPS = 20  # steps of each check
+ADAM_ULPS = 4.0  # where the clip scales: float32 ulps of each tensor's largest magnitude
+
+
+def _adam_side(shapes, fused: bool = False) -> tuple:
+    """Parameters and gradients from one seed, and an Adam after one step: as the
+    graphed loop has it (capturable, float64 counts), or torch's fused Adam."""
+    g = torch.Generator().manual_seed(0)
+    params = [(0.1 * torch.randn(s, generator=g)).cuda().requires_grad_() for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g).cuda()
+    opt = torch.optim.Adam(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8, fused=fused or None, capturable=fused)
+    opt.step()
+    if not fused:
+        _make_capturable(opt)
+    return params, opt
+
+
+def _adam_check(shapes, max_norm, ulps: float) -> tuple:
+    """``ADAM_STEPS`` steps of the kernel pair and of the plain path from one
+    state on the same Gaussian gradients; raises where a parameter or moment
+    is more than ``ulps`` float32 ulps of its tensor's largest magnitude off
+    the plain path's (bitwise at 0), or a step count differs.  Returns the
+    largest gap (absolute, and in ulps at scale)."""
+    sides = [_adam_side(shapes) for _ in range(2)]
+    g = torch.Generator().manual_seed(1)
+    before = clip_adam_step_.launches
+    for _ in range(ADAM_STEPS):
+        grads = [torch.randn(s, generator=g).cuda() for s in shapes]
+        for (params, opt), step in zip(sides, (clip_adam_step_, adam_step_plain)):
+            for p, gr in zip(params, grads):
+                p.grad = gr.clone()
+            step(opt, max_norm)
+    torch.cuda.synchronize()
+    if clip_adam_step_.launches - before != 2 * ADAM_STEPS:
+        raise AssertionError(f"{ADAM_STEPS} kernel steps made {clip_adam_step_.launches - before} launches")
+    (pa, oa), (pb, ob) = sides
+    gap_abs = gap_ulps = 0.0
+    for a, b in zip(pa, pb):
+        if not torch.equal(oa.state[a]["step"], ob.state[b]["step"]):
+            raise AssertionError(f"adam_step's step counts != the plain path's (max_norm {max_norm})")
+        for x, y in [(a, b)] + [(oa.state[a][k], ob.state[b][k]) for k in ("exp_avg", "exp_avg_sq")]:
+            gap = float((x.double() - y.double()).abs().max())
+            top = float(y.abs().max())
+            ulp = float(np.spacing(np.float32(top))) if top > 0 else float(np.finfo(np.float32).tiny)
+            gap_abs, gap_ulps = max(gap_abs, gap), max(gap_ulps, gap / ulp)
+    if gap_ulps > ulps:
+        raise AssertionError(f"adam_step is {gap_ulps:.3f} ulps off the plain path (max_norm {max_norm}; limit {ulps})")
+    return gap_abs, gap_ulps
+
+
+def _graph_ms(fn) -> float:
+    """Event time of one replay of ``fn`` captured as a CUDA graph, as the graphed update runs it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
+def _device_ms_all(fn, calls: int = 20, flush=None) -> tuple:
+    """(device ms a call, kernels a call): every device operation in a short
+    profiler window.  With ``flush``, it runs before each call (the L2 cache
+    then holds none of the call's data) and its own device time is taken off.
+    A warm-up step of the profiler's schedule comes first: a window opened
+    without one has been seen to drop its first three device events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def window(body) -> tuple:
+        done = []
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: done.append(p.key_averages())) as prof:
+            body()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                body()
+            torch.cuda.synchronize()
+            prof.step()
+        ops = [e for e in done[0] if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        return sum(_device_us(e) for e in ops) / 1e3 / calls, sum(e.count for e in ops) / calls
+
+    if flush is None:
+        ms, n = window(fn)
+        return (ms or None), n
+    (ms, n), (flush_ms, flush_n) = window(lambda: (flush(), fn())), window(flush)
+    return (ms - flush_ms if ms else None), n - flush_n
+
+
+def phase_adam_step(smi: str) -> list[dict]:
+    """The clip and Adam kernel pair (``ops/adam_step.py``) at the cells' two
+    parameter counts, with and without the clip, against the plain path (the
+    clip, then torch's capturable Adam with float64 counts) after 20 steps:
+    bitwise with no clip and with a clip that does not scale (1e9); within
+    ``ADAM_ULPS`` at the row's own clip, which scales every step on Gaussian
+    gradients (the norm's sum runs in another order), its largest gap kept in
+    the row; then the time of a step by events, eager and as a
+    replayed graph, and on the device (also with the L2 cache flushed before
+    each call: at the pixel Q-net's 2.0M parameters the step's 32 MB of reads fit
+    in the 50 MB L2, and a warm call beats the bytes' bound), beside the plain
+    path's, torch's fused Adam's (no clip; ``library_ms``) and the bound (32 B
+    a parameter with the clip, 28 without, at 3.35 TB/s)."""
+    rows = []
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")  # five times the H100's 50 MB L2
+    for net, make_net in ADAM_NETS.items():
+        shapes = [p.shape for p in make_net().parameters()]
+        total = sum(math.prod(s) for s in shapes)
+        for max_norm in (None, 1.0):
+            _adam_check(shapes, None if max_norm is None else 1e9, 0.0)
+            gap_abs, gap_ulps = (0.0, 0.0) if max_norm is None else _adam_check(shapes, max_norm, ADAM_ULPS)
+            kernel_side, plain_side, library_side = _adam_side(shapes), _adam_side(shapes), _adam_side(shapes, True)
+            kernel = lambda: clip_adam_step_(kernel_side[1], max_norm)  # noqa: E731
+            plain = lambda: adam_step_plain(plain_side[1], max_norm)  # noqa: E731
+            library = library_side[1].step
+            row = dict(net=net, params=total, tensors=len(shapes), clip=max_norm is not None,
+                       max_abs_err=gap_abs, max_ulps=gap_ulps, bound_ms=1e3 * (32 if max_norm is not None else 28) * total / PEAK_BYTES)
+            for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+                row[f"{name}_ms"] = time_ms(fn)
+                row[f"{name}_graph_ms"] = _graph_ms(fn)
+                row[f"{name}_device_ms"], row[f"{name}_kernels"] = _device_ms_all(fn)
+                row[f"{name}_cold_device_ms"] = _device_ms_all(fn, flush=l2_flush.zero_)[0]
+            rows.append(row)
+            check = "bitwise" if max_norm is None else f"bitwise at 1e9, {gap_ulps:.3f} ulps ({gap_abs:.3g}) at {max_norm}"
+            log(f"[adam_step] {net} ({total} parameters, {len(shapes)} tensors, clip {max_norm}): the plain path over "
+                f"{ADAM_STEPS} steps {check}; kernel {row['kernel_ms']:.4f} ms eager, {row['kernel_graph_ms']:.4f} ms a "
+                f"replay, device {fmt_ms(row['kernel_device_ms'])} in {row['kernel_kernels']:g} kernels (L2 flushed "
+                f"{fmt_ms(row['kernel_cold_device_ms'])}); plain {row['plain_ms']:.4f} / {row['plain_graph_ms']:.4f} ms, "
+                f"device {fmt_ms(row['plain_device_ms'])} in {row['plain_kernels']:g} (flushed "
+                f"{fmt_ms(row['plain_cold_device_ms'])}); fused Adam (library, no clip) {row['library_ms']:.4f} / "
+                f"{row['library_graph_ms']:.4f} ms, device {fmt_ms(row['library_device_ms'])} (flushed "
+                f"{fmt_ms(row['library_cold_device_ms'])}); bound {row['bound_ms']:.6f} ms [{smi}]")
+    return rows
+
+
 def main(argv: list | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--bench-profile"]):
@@ -2479,6 +2628,7 @@ def main(argv: list | None = None) -> int:
         print(json.dumps({"bench_profiles": phase_bench(smi, profile=True)["profiles"]}))
         return 0
     timed = phase_kernel_vs_plain(smi)
+    adam_rows = phase_adam_step(smi)
     archive = phase_archive_add(smi)
     planar = phase_planar(smi)
     envs = phase_envs(smi)
@@ -2527,11 +2677,12 @@ def main(argv: list | None = None) -> int:
     # MO-Q-Learning and EUPG are single-policy: they score no front, in the JAX package either;
     # nor do the bench's breakdowns, as the JAX scripts do not
     no_front = {"moql", "eupg", "bench_probes"}
-    launches_by_path = {}
+    launches_by_path, adam_launches_by_path = {}, {}
     for name, drive in paths.items():
-        non_dominated_mask_cuda.launches = 0
+        non_dominated_mask_cuda.launches = clip_adam_step_.launches = 0
         drive()
         launches_by_path[name] = non_dominated_mask_cuda.launches
+        adam_launches_by_path[name] = clip_adam_step_.launches
         if launches_by_path[name] == 0 and name not in no_front:
             raise AssertionError(f"the {name} path never launched the pareto_nd kernel")
     launches = sum(launches_by_path.values())
@@ -2555,13 +2706,31 @@ def main(argv: list | None = None) -> int:
         "sizes": timed,
         "archive_add": archive,
     }
+    adam_main = next(r for r in adam_rows if r["net"] == "envelope" and r["clip"])
+    adam_record = {
+        "name": "clip_adam_step",
+        "route": "cuda",
+        "source": "morl_baselines_torch/csrc/adam_step.cu",
+        "replaces": None,  # no TPU kernel: the JAX package leaves optax's clip and Adam to XLA
+        "launches": sum(adam_launches_by_path.values()),  # host launches: eager steps and captures, not replays
+        "launches_by_path": adam_launches_by_path,
+        "max_abs_err": adam_main["max_abs_err"],  # against the plain path at clip 1.0; bitwise where it does not scale
+        "ms": adam_main["kernel_graph_ms"],
+        "device_ms": adam_main["kernel_device_ms"],
+        "plain_ms": adam_main["plain_graph_ms"],
+        "bound_ms": adam_main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": adam_main["library_graph_ms"],  # torch's fused Adam, without the clip
+        "at": "204,818 parameters, clip 1.0, a replayed graph (Envelope's update in envelope-minecart.wide)",
+        "sizes": adam_rows,
+    }
     log(f"[planar] {json.dumps(planar)}")
     log(f"[envs] {json.dumps(envs)}")
     log(f"[native] {json.dumps(host_hv)}")
     log(f"[mujoco] {json.dumps(mujoco)}")
     log(f"[timings] {json.dumps(timings)}")
     log(smi)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, adam_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -28,8 +28,10 @@ the JAX package builds its Q-net with ``dtype=bfloat16``; params, optimizer
 and Q-values stay float32.
 The optimizer is the reference's ``optax.chain(clip_by_global_norm, adam)``:
 optax's clip (``clip_grad_global_norm_``), then ``torch.optim.Adam`` with
-optax's betas and eps.  On CUDA the one-seed loop's update is one CUDA graph
-replay (``models.graphed.GraphedUpdate``); on the CPU it runs eagerly.
+optax's betas and eps, as one call (``ops.adam_step.clip_adam_step_``: on
+CUDA two hand-written kernels).  On CUDA the one-seed
+loop's update is one CUDA graph replay (``models.graphed.GraphedUpdate``); on
+the CPU it runs eagerly.
 
 A seed axis (``init_state_seeds``, the JAX package's ``jax.vmap`` over
 ``init_state``/``train_segment``/``_eval_front`` in the sweep's stacked
@@ -62,11 +64,11 @@ from ..models.networks import (
     EnvelopeQNet,
     MemberAdam,
     TrainState,
-    clip_grad_global_norm_,
     clip_grad_global_norm_members_,
     polyak_update,
     stack_members,
 )
+from ..ops.adam_step import clip_adam_step_
 from ..parallel.mesh import RowShard, gather_rows, local
 from ..replay.buffer import MemberReplayBuffer, ReplayBuffer, Transition
 from ..replay.prioritized import MemberPrioritizedReplayBuffer, PrioritizedReplayBuffer
@@ -284,13 +286,14 @@ class Envelope(MOAgentBase):
         is its own loss's, clipped by its own global norm, and ``MemberAdam``
         keeps each seed's step count.
         """
-        params = list(ts.net.parameters())
         loss, td_scal, _ = self._loss(ts, batch, sampled_w, homotopy_lambda)
         ts.optimizer.zero_grad()
         loss.backward(torch.ones_like(loss))  # the seeds share no params
-        clip = clip_grad_global_norm_ if ts.net.members is None else clip_grad_global_norm_members_
-        clip(params, self.cfg.max_grad_norm)
-        ts.optimizer.step()
+        if ts.net.members is None:
+            clip_adam_step_(ts.optimizer, self.cfg.max_grad_norm)
+        else:
+            clip_grad_global_norm_members_(list(ts.net.parameters()), self.cfg.max_grad_norm)
+            ts.optimizer.step()
         return loss.detach(), td_scal[..., : batch.obs.shape[-2]].detach()
 
     # ---------------------------------------------------------- train segment

@@ -53,10 +53,10 @@ from ..models.graphed import GraphedUpdate
 from ..models.networks import (
     TrainState,
     WeightConditionedQNet,
-    clip_grad_global_norm_,
     huber,
     polyak_update,
 )
+from ..ops.adam_step import clip_adam_step_
 from ..outer.linear_support import LinearSupport
 from ..parallel.mesh import RowShard, gather, gather_rows, local
 from ..replay.buffer import ReplayBuffer, Transition
@@ -387,9 +387,7 @@ class GPILS(LinearSupportLoop, MOAgentBase):
         loss = huber(tds, cfg.min_priority).mean()
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if cfg.max_grad_norm is not None:
-            clip_grad_global_norm_(list(ts.net.parameters()), cfg.max_grad_norm)
-        ts.optimizer.step()
+        clip_adam_step_(ts.optimizer, cfg.max_grad_norm)
         return loss.detach(), tds.detach(), target_psi
 
     # ---------------------------------------------------------- train segment

@@ -1,9 +1,10 @@
 """One learner update as a CUDA graph, captured once for a training state and
 replayed for every later update.
 
-An update of the Envelope or GPI-LS loop (target, forward, backward, clip,
-Adam) is about 200 small kernels, each a few microseconds of device work
-behind a launch of 20-30 µs made from Python.  ``GraphedUpdate`` wraps an
+An update of the Envelope or GPI-LS loop (target, forward, backward, then
+the clip and Adam as the two kernels of ``ops/adam_step.py``) is about 140
+small kernels, each a few microseconds of device work behind a launch of
+20-30 µs made from Python.  ``GraphedUpdate`` wraps an
 agent's ``_update(ts, *args)`` so that every kernel of it is launched by one
 ``CUDAGraph.replay``:
 
@@ -11,9 +12,10 @@ agent's ``_update(ts, *args)`` so that every kernel of it is launched by one
   ``torch.optim.Adam`` over CUDA parameters; every other call (the CPU, the
   seed-stacked ``MemberAdam``) is the plain ``update(ts, *args)``;
 - the first ``WARMUP`` updates of a state run eagerly on a side stream: real
-  updates on their real batches.  The first of a new state creates Adam's
-  state as Adam is made; from the second on, Adam is ``capturable``, with its
-  step counts on the device in float64 (``_make_capturable``);
+  updates on their real batches.  Adam is ``capturable``, with its step
+  counts on the device in float64: the agents' step (``ops/adam_step.py``)
+  makes a new state so, and ``_make_capturable`` turns a state made as Adam
+  is made (a default Adam's first step, a loaded checkpoint) into it;
 - the next update is captured (capture runs nothing) and replayed, and every
   later update copies its inputs into the graph's static tensors and replays.
   A tensor argument is copied, a ``Transition``'s five too; a number (the

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "morl_torch_kernels"
-KERNELS = ("pareto_nd",)
+KERNELS = ("pareto_nd", "adam_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
