@@ -5,8 +5,9 @@
 - sound runs: the program's compared iterations against the reference's, one
   line a seed (the lower readings are their largest);
 - the control: the reference computed with TF32 operands in the program's place;
-- faults planted in the program (``faults.py``); the program runs on past its
-  first target copy under ``nocopy``, whose numbers are the copy's.
+- faults planted in the program (``faults.py``); under the copy rule the
+  program runs on past its first target copy under ``nocopy``, whose numbers
+  are the copy's (under the Polyak rule the compared iterations read it).
 Each line is JSON: {"kind", "seed", <number>: <reading>, ...}; the last line
 holds each kind's largest (sound) or least (control, faults) reading of each
 number.  The benchmark's own runs never run this."""
@@ -44,11 +45,12 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
 
     def program(seed, copy=False):
-        """The program's readings, and with ``copy`` its target copy's numbers."""
+        """The program's readings, and with ``copy`` its target copy's numbers (under the copy rule)."""
         agent, state, readings, probe = harness.program_setup(cell, seed, device)
         copied = {}
-        if copy:
-            harness.drive_to_copy(agent, state, probe, harness.first_learning_iteration(cell.traffic) - 1 + harness.COMPARED)
+        if copy and probe is not None:
+            step = harness.hook(harness.algorithm(cell.config["algorithm"]), "step")
+            harness.drive_to_copy(agent, state, probe, harness.first_learning_iteration(cell) - 1 + harness.COMPARED, step)
             copied = probe.gaps()
         del agent, state, probe
         torch.cuda.empty_cache()

@@ -25,7 +25,13 @@ The numbers; a cell holds those its ``benchmark/limits/<cell>.json`` gives a lim
   ``copy_gap``, the largest |target - online| over the leaves after the first
   iteration whose count is a multiple of ``target_net_update_freq``, and
   ``copy_timing``, the share of the target's leaves that left the run's
-  starting weights before that iteration or still hold them after it.
+  starting weights before that iteration or still hold them after it;
+- under the Polyak rule (a target that moves a share ``tau`` of the way to
+  the online net on every update), ``target_change_gap``: the worst target
+  leaf's gap between the norms of its change over the three iterations,
+  program against reference, over the larger of that leaf's reference norm
+  and the median target leaf's (the online leaves' median would hide a
+  target that moves ``tau`` times less).
 
 An iteration makes several Adam steps, so the first moment after one
 iteration is what the optimizer's state gives in place of the first gradient.
@@ -36,19 +42,21 @@ from __future__ import annotations
 import statistics
 
 NUMBERS = ("loss_gap", "first_loss_gap", "moment_gap", "change_gap", "first_change_gap", "prio_gap", "sample_gap",
-           "copy_gap", "copy_timing")
+           "copy_gap", "copy_timing", "target_change_gap")
 
 
 class Readings:
     """What one side gives: the losses of the three learning iterations, each
     leaf's first-moment norm and change norm after the first, each leaf's
-    change norm after the third."""
+    change norm after the third and, under the Polyak rule, each target
+    leaf's change norm after the third."""
 
     def __init__(self):
         self.losses: list[float] = []
         self.moment: dict[str, float] = {}
         self.first_change: dict[str, float] = {}
         self.change: dict[str, float] = {}
+        self.target_change: dict[str, float] = {}  # the Polyak rule's target leaves; empty under the copy rule
         # with PER: the least and the largest priority each row may hold after the first learning iteration
         self.priorities = None
         self.drawn: list = []  # with PER: the rows each update drew, in order
@@ -87,6 +95,8 @@ def compare(prog: Readings, ref: Readings) -> dict:
         "change_gap": _worst_leaf(prog.change, ref.change, moved),
         "first_change_gap": _worst_leaf(prog.first_change, ref.first_change, moved),
     }
+    if prog.target_change and ref.target_change:
+        gaps["target_change_gap"] = target_change_gap(prog.target_change, ref.target_change)
     if prog.priorities is not None and ref.priorities is not None:
         import torch
 
@@ -98,6 +108,14 @@ def compare(prog: Readings, ref: Readings) -> dict:
         gaps["prio_gap"] = float(torch.median(gap)) if gap.numel() else 0.0
         gaps["sample_gap"] = prog.misdrawn / max(sum(d.numel() for d in prog.drawn), 1)
     return gaps
+
+
+def target_change_gap(prog: dict, ref: dict) -> float:
+    """The worst target leaf's gap of change norms, over the larger of its
+    reference norm and the median target leaf's."""
+    if set(prog) != set(ref):
+        raise ValueError("the two sides' target leaves do not pair up")
+    return _worst_leaf(prog, ref, ref)
 
 
 def copy_gaps(before: list, after: list, online: list, start: list) -> dict:

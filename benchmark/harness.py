@@ -10,17 +10,56 @@ algorithm, the env and the hyperparameters as run), ``traffic/<traffic>.json``
 program is built and driven, its reference, and the GEMMs an iteration needs)
 and ``metrics/<metric>.py`` (a reader that returns the metric or None).
 
+An algorithm module (``algos/<algorithm>.py``) gives:
+
+- ``shapes(cfg)``: the benchmark's learnable leaves, ``{name: (shape, fan_in)}``
+  (``weights.make_params``); every learnable leaf of the program: an actor's,
+  critics' and a temperature's alike;
+- ``port_name(name)`` and ``to_port(name, x)``: the program's parameter of a
+  leaf, and the leaf in the program's layout;
+- ``build(cfg, traffic, seed, device)``: ``(agent, state, net, target)``, every
+  leaf in the net and in its target; or ``(agent, state, nets)``, ``nets`` a
+  mapping of named modules, each a module, a tensor (a leaf of its own, such
+  as a temperature) or an (online, target) pair of modules; a leaf lies in
+  the module of ``nets`` that ``port_name``'s first dotted part names, at the
+  rest of the name (a tensor's leaf is named by its key alone), and a target
+  takes its online module's values;
+- ``reference(cfg, traffic, params, seed, device, precision)``: an object with
+  ``iterate()``, ``loss``, ``params`` and ``opt.m`` (the first moment, keyed by
+  the leaf names, over however many optimizers), with PER ``buffer``
+  (``drawn``, ``follow``, ``prio_lo``, ``prio_hi``) and under the Polyak rule
+  ``target_params`` (the target's leaves, keyed by the leaf names);
+- ``gemms(cfg, traffic)``: the GEMMs one iteration needs;
+
+and may give these hooks, each of which has a default (``DEFAULTS``):
+
+- ``step(agent, state)``: one iteration of the window; ``agent.train_segment(state, 1)``;
+- ``env_steps(cfg, traffic)``: the env transitions of one iteration; ``traffic["num_envs"]``;
+- ``first_learning_iteration(cfg, traffic)``: the first iteration that
+  learns (counted from 1); ``ceil(learning_starts / num_envs)``;
+- ``reads(state)``: what the check reads from the program, ``(loss, optimizers,
+  buffer)``: the last update's loss (a scalar tensor), the optimizers whose
+  ``exp_avg`` make up the first moment, and the buffer (read only with PER);
+  ``(state.loss, [state.ts.optimizer], state.buffer)``;
+- ``target_rule(cfg)``: ``("copy", every)``, ``("polyak", tau)`` or, for a
+  learner without a target, ``("none", None)``;
+  ``("copy", cfg["target_net_update_freq"])``.  Under ``"copy"`` the run reads
+  the first target copy after set-up (``CopyProbe``); under ``"polyak"`` the
+  readings hold the target leaves' change over the compared iterations
+  (``check.py``'s ``target_change_gap``).
+
 A run:
-1. builds the agent's state through the program's public API, with Q-net
-   weights the benchmark makes on the device from the seed;
-2. runs the iterations before ``learning_starts`` and the first three learning
-   iterations through the window's own call, reading the losses, Adam's first
-   moment, the parameters' change and, with PER, the priorities and the rows
-   each update draws (all of this is set-up, counted in ``setup_s``);
-3. calls ``train_segment(state, 1)`` for ``--seconds``, recording a CUDA event
-   after each call without synchronising; the intervals are read after the
-   window's closing synchronise.  Around the first target copy in the window
-   it keeps copies of the target's and the online net's leaves;
+1. builds the agent's state through the program's public API, with weights
+   the benchmark makes on the device from the seed;
+2. runs the iterations before the first that learns and the first three
+   learning iterations through the window's own call, reading the losses,
+   the first moment, the parameters' change, under the Polyak rule the
+   target's change and, with PER, the priorities and the rows each update
+   draws (all of this is set-up, counted in ``setup_s``);
+3. runs ``step`` for ``--seconds``, recording a CUDA event after each call
+   without synchronising; the intervals are read after the window's closing
+   synchronise.  Under the copy rule, around the first target copy in the
+   window it keeps copies of the target's and the online net's leaves;
 4. with ``--trace 1``, profiles a stretch of ``profile_iters`` more iterations;
 5. reads the peak memory, frees the program's state, runs the reference from
    the same seed through the same iterations (with PER, on the rows the
@@ -136,48 +175,129 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def load_params(algo, params: dict, *nets) -> None:
-    """The benchmark's weights into the program's nets, every leaf of them."""
+def _step(agent, state) -> None:
+    agent.train_segment(state, 1)
+
+
+def _reads(state):
+    return state.loss, [state.ts.optimizer], state.buffer
+
+
+DEFAULTS = {
+    "step": _step,
+    "env_steps": lambda cfg, traffic: traffic["num_envs"],
+    "first_learning_iteration": lambda cfg, traffic: math.ceil(traffic["learning_starts"] / traffic["num_envs"]),
+    "reads": _reads,
+    "target_rule": lambda cfg: ("copy", cfg["target_net_update_freq"]),
+}
+
+
+def hook(algo, name: str):
+    """The algorithm module's ``name``, or the harness's default of it."""
+    return getattr(algo, name, DEFAULTS[name])
+
+
+def program_leaves(algo, names, nets: dict) -> tuple[dict, dict]:
+    """(online, target): the program's tensor of each leaf ``names`` lists,
+    and its target's tensor of each leaf that has a target, in ``nets`` (the
+    mapping ``build`` gives; the key None holds a net and its target whose
+    parameters ``port_name`` names whole).  Raises where a module has leaves
+    that no name reaches."""
     import torch
 
-    for net in nets:
-        named = dict(net.named_parameters())
-        if len(named) != len(params):
-            raise RuntimeError(f"the program's net has {len(named)} leaves, the benchmark made {len(params)}")
-        with torch.no_grad():
+    online, target, count, named = {}, {}, dict.fromkeys(nets, 0), {}
+
+    def leaf(module, path):
+        if isinstance(module, torch.Tensor):
+            return module
+        if id(module) not in named:
+            named[id(module)] = dict(module.named_parameters())
+        return named[id(module)][path]
+
+    for k in names:
+        port = algo.port_name(k)
+        key, path = (None, port) if None in nets else (port.partition(".")[0], port.partition(".")[2])
+        pair = nets[key] if isinstance(nets[key], tuple) else (nets[key], None)
+        online[k] = leaf(pair[0], path)
+        if pair[1] is not None:
+            target[k] = leaf(pair[1], path)
+        count[key] += 1
+    for key, entry in nets.items():
+        for module in entry if isinstance(entry, tuple) else (entry,):
+            n = 1 if isinstance(module, torch.Tensor) else len(list(module.parameters()))
+            if n != count[key]:
+                net = "net" if key is None else f"module {key!r}"
+                raise RuntimeError(f"the program's {net} has {n} leaves, the benchmark made {count[key]}")
+    return online, target
+
+
+def load_params(algo, params: dict, *nets) -> None:
+    """The benchmark's weights into the program: every leaf into each net
+    given, or, given the mapping of named modules ``build`` returns, each
+    leaf into its module and its target."""
+    if len(nets) == 1 and isinstance(nets[0], dict):
+        _load(algo, params, program_leaves(algo, params, nets[0]))
+    else:
+        _load(algo, params, [program_leaves(algo, params, {None: net})[0] for net in nets])
+
+
+def _load(algo, params: dict, sides) -> None:
+    """Each leaf of ``params`` into its tensor in each of ``sides`` (mappings of leaf names) that holds it."""
+    import torch
+
+    with torch.no_grad():
+        for leaves in sides:
             for k, v in params.items():
-                p, src = named[algo.port_name(k)], algo.to_port(k, v)
+                if k not in leaves:
+                    continue
+                p, src = leaves[k], algo.to_port(k, v)
                 if p.shape != src.shape:
                     raise RuntimeError(f"{k}: the program's leaf is {tuple(p.shape)}, the benchmark's {tuple(src.shape)}")
                 p.copy_(src)
 
 
-def first_learning_iteration(traffic: dict) -> int:
-    return math.ceil(traffic["learning_starts"] / traffic["num_envs"])
+def first_learning_iteration(cell: Cell) -> int:
+    return hook(algorithm(cell.config["algorithm"]), "first_learning_iteration")(cell.config, cell.traffic)
 
 
-def follow(cell: Cell, step, loss, leaves, moment, priorities, sampling) -> check.Readings:
+def follow(cell: Cell, step, loss, leaves, moment, priorities, sampling, targets=None) -> check.Readings:
     """One side's readings: ``step()`` through the iterations before learning
     starts and the compared learning iterations; ``loss()``, ``leaves()``,
     ``moment()`` and ``priorities()`` (the least and the largest priority
-    each row may hold) read its state; ``sampling(readings)`` is entered
+    each row may hold) read its state, and ``targets()``, where given, the
+    target's leaves (the Polyak rule); ``sampling(readings)`` is entered
     around the compared iterations."""
     readings = check.Readings()
-    for _ in range(first_learning_iteration(cell.traffic) - 1):
+    for _ in range(first_learning_iteration(cell) - 1):
         step()
-    snapshot = lambda: {k: v.detach().clone() for k, v in leaves().items()}  # noqa: E731
-    before = snapshot()
+    snapshot = lambda read: {k: v.detach().clone() for k, v in read().items()}  # noqa: E731
+    before = snapshot(leaves)
+    target_before = snapshot(targets) if targets else None
     with sampling(readings):
         for i in range(COMPARED):
             step()
             readings.losses.append(float(loss()))
             if i == 0:
                 check.record_moment(readings, moment())
-                readings.first_change = check.change_norms(before, snapshot())
+                readings.first_change = check.change_norms(before, snapshot(leaves))
                 if cell.traffic["per"]:
                     readings.priorities = tuple(x.detach().clone() for x in priorities())
-    readings.change = check.change_norms(before, snapshot())
+    readings.change = check.change_norms(before, snapshot(leaves))
+    if targets:
+        readings.target_change = check.change_norms(target_before, snapshot(targets))
     return readings
+
+
+def first_moments(optimizers, leaves: dict) -> dict:
+    """Each leaf's first moment (``exp_avg``) in whichever of ``optimizers``
+    holds it; zeros for a leaf whose optimizer has not stepped."""
+    import torch
+
+    out = {}
+    for k, p in leaves.items():
+        state = next((opt.state[p] for opt in optimizers if p in opt.state), {})
+        out[k] = state.get("exp_avg", torch.zeros_like(p))
+    return out
 
 
 @contextlib.contextmanager
@@ -209,63 +329,63 @@ def recorded_draws(buffer, readings: check.Readings):
 
 
 class CopyProbe:
-    """The first target copy after set-up: copies of the target's leaves
-    after the iteration before it and after it, and of the online net's after
-    it, taken on the device without a synchronise; ``gaps()`` reads them."""
+    """The first target copy after set-up, every ``every`` iterations: copies
+    of the target's leaves after the iteration before it and after it, and of
+    the online net's after it, taken on the device without a synchronise;
+    ``gaps()`` reads them."""
 
-    def __init__(self, cfg: dict, net, target, done: int):
-        freq = cfg["target_net_update_freq"]
-        self.at = (done + 1) // freq * freq + freq  # the first multiple of freq after done + 1
-        self.net, self.target = net, target
-        self.start = self._leaves(target)
+    def __init__(self, every: int, online: list, target: list, done: int):
+        self.at = (done + 1) // every * every + every  # the first multiple of every after done + 1
+        self.online_leaves, self.target_leaves = online, target
+        self.start = self._copy(target)
         self.before = self.after = self.online = None
 
     @staticmethod
-    def _leaves(net) -> list:
-        return [p.detach().clone() for p in net.parameters()]
+    def _copy(leaves: list) -> list:
+        return [p.detach().clone() for p in leaves]
 
     def seen(self, done: int) -> None:
         """Called with the count of iterations run, after each."""
         if done == self.at - 1:
-            self.before = self._leaves(self.target)
+            self.before = self._copy(self.target_leaves)
         elif done == self.at:
-            self.after, self.online = self._leaves(self.target), self._leaves(self.net)
+            self.after, self.online = self._copy(self.target_leaves), self._copy(self.online_leaves)
 
     def gaps(self) -> dict:
         return check.copy_gaps(self.before, self.after, self.online, self.start)
 
 
 def program_setup(cell: Cell, seed: int, device):
-    """(agent, state, readings, copy probe): the state past ``learning_starts``
-    and the compared learning iterations, all through the window's own call."""
-    import torch
-
+    """(agent, state, readings, copy probe): the state past the iterations
+    before learning starts and the compared learning iterations, all through
+    the window's own call; the probe is None under the Polyak rule."""
     from .weights import make_params
 
     algo = algorithm(cell.config["algorithm"])
-    params = make_params(algo.shapes(cell.config), seed, device)
-    agent, state, net, target = algo.build(cell.config, cell.traffic, seed, device)
-    load_params(algo, params, net, target)
+    shapes = algo.shapes(cell.config)
+    params = make_params(shapes, seed, device)
+    agent, state, *nets = algo.build(cell.config, cell.traffic, seed, device)
+    online, target = program_leaves(algo, shapes, nets[0] if len(nets) == 1 else {None: tuple(nets)})
+    _load(algo, params, (online, target))
     del params
-    named = {k: dict(net.named_parameters())[algo.port_name(k)] for k in algo.shapes(cell.config)}
-
-    def moment():  # an optimizer that has not stepped holds no moment
-        opt = state.ts.optimizer.state
-        return {k: opt.get(p, {}).get("exp_avg", torch.zeros_like(p)) for k, p in named.items()}
+    step, reads = hook(algo, "step"), hook(algo, "reads")
 
     def sampling(readings):
-        return recorded_draws(state.buffer, readings) if cell.traffic["per"] else contextlib.nullcontext()
+        return recorded_draws(reads(state)[2], readings) if cell.traffic["per"] else contextlib.nullcontext()
 
-    probe = CopyProbe(cell.config, net, target, first_learning_iteration(cell.traffic) - 1 + COMPARED)
-    readings = follow(cell, lambda: agent.train_segment(state, 1), lambda: state.loss, lambda: named, moment,
-                      lambda: (state.buffer.priorities,) * 2, sampling)
+    rule, every = hook(algo, "target_rule")(cell.config)
+    done = first_learning_iteration(cell) - 1 + COMPARED
+    probe = CopyProbe(every, list(online.values()), list(target.values()), done) if rule == "copy" else None
+    readings = follow(cell, lambda: step(agent, state), lambda: reads(state)[0], lambda: online,
+                      lambda: first_moments(reads(state)[1], online), lambda: (reads(state)[2].priorities,) * 2,
+                      sampling, (lambda: target) if rule == "polyak" else None)
     return agent, state, readings, probe
 
 
-def drive_to_copy(agent, state, probe: CopyProbe, done: int) -> None:
+def drive_to_copy(agent, state, probe: CopyProbe, done: int, step=_step) -> None:
     """Iterations on to the target copy where the window stopped short of it."""
     while done < probe.at:
-        agent.train_segment(state, 1)
+        step(agent, state)
         done += 1
         probe.seen(done)
 
@@ -281,9 +401,12 @@ def reference_readings(cell: Cell, seed: int, device, precision: str = "f32", dr
     ref = algo.reference(cell.config, cell.traffic, make_params(algo.shapes(cell.config), seed, device), seed, device, precision)
     if draws is not None:
         ref.buffer.follow = list(draws)
+    polyak = hook(algo, "target_rule")(cell.config)[0] == "polyak"
     readings = follow(cell, ref.iterate, lambda: ref.loss, lambda: ref.params, lambda: ref.opt.m,
-                      lambda: (ref.buffer.prio_lo, ref.buffer.prio_hi), lambda readings: contextlib.nullcontext())
-    readings.drawn = ref.buffer.drawn
+                      lambda: (ref.buffer.prio_lo, ref.buffer.prio_hi), lambda readings: contextlib.nullcontext(),
+                      (lambda: ref.target_params) if polyak else None)
+    if cell.traffic["per"]:
+        readings.drawn = ref.buffer.drawn
     return readings
 
 
@@ -315,14 +438,15 @@ class Window:
     iters: int
     wall_s: float
     intervals_ms: list
-    num_envs: int
+    num_envs: int  # env transitions of one iteration (the algorithm's ``env_steps``)
     setup_s: float
     stretch: object = None  # stretch.Stretch of the traced run
     gemms: list | None = None  # (m, k, n) of an iteration's Q-net GEMMs
     peaks: dict | None = None
 
 
-def run_window(agent, state, seconds: float, device, probe: CopyProbe, done: int) -> tuple[int, float, list, float]:
+def run_window(agent, state, seconds: float, device, probe: CopyProbe | None, done: int,
+               step=_step) -> tuple[int, float, list, float]:
     """(iterations, wall seconds, intervals ms, boot-clock time of the opening);
     ``done`` iterations ran before it."""
     marks = Marks(device)
@@ -332,10 +456,11 @@ def run_window(agent, state, seconds: float, device, probe: CopyProbe, done: int
     marks.mark()
     iters = 0
     while time.perf_counter() - t0 < seconds:
-        agent.train_segment(state, 1)
+        step(agent, state)
         marks.mark()
         iters += 1
-        probe.seen(done + iters)
+        if probe is not None:
+            probe.seen(done + iters)
     _sync(device)
     return iters, time.perf_counter() - t0, marks.intervals_ms(), opened
 
@@ -352,7 +477,7 @@ def loop_ms() -> float:
     return 1e3 * best
 
 
-def profile_stretch(agent, state, iters: int, device):
+def profile_stretch(agent, state, iters: int, device, step=_step):
     """A ``stretch.Stretch`` of ``iters`` iterations under the profiler (host and device)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -363,7 +488,7 @@ def profile_stretch(agent, state, iters: int, device):
     with profile(activities=acts) as prof:
         with record_function(RANGE):
             for _ in range(iters):
-                agent.train_segment(state, 1)
+                step(agent, state)
             _sync(device)
     return reduce(prof.events(), iters)
 
@@ -383,20 +508,23 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
 
     cell = load_cell(root, workload)
     algo = algorithm(cell.config["algorithm"])
+    step = hook(algo, "step")
     agent, state, prog, probe = program_setup(cell, seed, device)
-    done = first_learning_iteration(cell.traffic) - 1 + COMPARED
+    done = first_learning_iteration(cell) - 1 + COMPARED
     host = [loop_ms()]
-    iters, wall, intervals, opened = run_window(agent, state, seconds, device, probe, done)
+    iters, wall, intervals, opened = run_window(agent, state, seconds, device, probe, done, step)
     host.append(loop_ms())
-    win = Window(iters, wall, intervals, cell.traffic["num_envs"], opened - started)
-    drive_to_copy(agent, state, probe, done + iters)
-    copied = probe.gaps()
+    win = Window(iters, wall, intervals, hook(algo, "env_steps")(cell.config, cell.traffic), opened - started)
+    copied = {}
+    if probe is not None:
+        drive_to_copy(agent, state, probe, done + iters, step)
+        copied = probe.gaps()
     del probe
     if trace:
-        win.stretch = profile_stretch(agent, state, cell.traffic["profile_iters"], device)
+        win.stretch = profile_stretch(agent, state, cell.traffic["profile_iters"], device, step)
         win.gemms = algo.gemms(cell.config, cell.traffic)
         win.peaks = json.loads((root / BENCH_DIR.name / "peaks.json").read_text())
-    last_loss = float(state.loss)
+    last_loss = float(hook(algo, "reads")(state)[0])
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": cell.chips,

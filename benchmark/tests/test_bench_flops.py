@@ -42,6 +42,7 @@ FILES = {
     "gpils-minecart.proto": ("gpils-minecart", "proto"),
     "envelope-minecart.proto": ("envelope-minecart", "proto"),
     "gpils-minecart.wide": ("gpils-minecart", "wide-4096"),
+    "envelope-pixel.wide": ("envelope-pixel", "pixel-2048"),
 }
 
 
